@@ -1,0 +1,157 @@
+"""NTT facade (sppark ntt/ntt.cuh): InputOutputOrder {NN, NR, RN, RR},
+Direction {forward, inverse}, Type {standard, coset}; `base` (host wire
+array in and out, NTT::Base), `base_dev` (a tensor on its device,
+NTT::Base_dev_ptr), and the LDE family (NTT::LDE_aux, LDE_powers,
+LDE_expand).
+
+Host-array entry points take `device=None`, which means the CUDA card: on
+a machine without one they raise unless the caller passes device="cpu".
+The `*_dev` functions run on the device of the tensor they are given.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Union
+
+import numpy as np
+import torch
+
+from ..ff import gl64
+from ..params import FieldParams, get_field
+from ..runtime.devices import resolve
+from ..util.errors import SpparkError
+from . import fused
+from .core import bit_reverse, bitrev_indices
+from .parameters import get_parameters
+
+
+class InputOutputOrder(enum.Enum):
+    NN = "NN"
+    NR = "NR"
+    RN = "RN"
+    RR = "RR"
+
+
+class Direction(enum.Enum):
+    forward = 0
+    inverse = 1
+
+
+class Type(enum.Enum):
+    standard = 0
+    coset = 1
+
+
+def _field_name(field: Union[str, FieldParams]) -> str:
+    return field.name if isinstance(field, FieldParams) else str(field)
+
+
+def _check_domain(name: str, x: torch.Tensor, lg: int) -> None:
+    if lg > get_field(name).two_adicity:
+        raise SpparkError(1, f"{name}: 2^{lg} exceeds two-adicity")
+    if x.shape[-1] != 1 << lg:
+        raise ValueError(f"last axis {x.shape[-1]} != 2^{lg}")
+
+
+def base_dev(field, x: torch.Tensor, lg_domain: int,
+             order: InputOutputOrder = InputOutputOrder.NN,
+             direction: Direction = Direction.forward,
+             ntt_type: Type = Type.standard) -> torch.Tensor:
+    """NTT along the last axis of a tensor of Goldilocks words, on its
+    device (NTT::Base_dev_ptr)."""
+    name = _field_name(field)
+    _check_domain(name, x, lg_domain)
+    return fused.facade(name, x, lg_domain, InputOutputOrder(order).value,
+                        Direction(direction) == Direction.inverse,
+                        Type(ntt_type) == Type.coset)
+
+
+def base(field, inout: np.ndarray, lg_domain: int,
+         order: InputOutputOrder = InputOutputOrder.NN,
+         direction: Direction = Direction.forward,
+         ntt_type: Type = Type.standard, device=None) -> np.ndarray:
+    """One-shot host-array NTT (NTT::Base): upload, transform, download,
+    in the wire format."""
+    x = gl64.from_wire(inout, resolve(device))
+    return gl64.to_wire(base_dev(field, x, lg_domain, order, direction,
+                                 ntt_type))
+
+
+def ntt(field, inout, lg_domain, order=InputOutputOrder.NN, device=None):
+    return base(field, inout, lg_domain, order, Direction.forward,
+                device=device)
+
+
+def intt(field, inout, lg_domain, order=InputOutputOrder.NN, device=None):
+    return base(field, inout, lg_domain, order, Direction.inverse,
+                device=device)
+
+
+def coset_ntt(field, inout, lg_domain, order=InputOutputOrder.NN,
+              device=None):
+    return base(field, inout, lg_domain, order, Direction.forward,
+                Type.coset, device=device)
+
+
+def coset_intt(field, inout, lg_domain, order=InputOutputOrder.NN,
+               device=None):
+    return base(field, inout, lg_domain, order, Direction.inverse,
+                Type.coset, device=device)
+
+
+# -- LDE -----------------------------------------------------------------------
+
+def _check_lde(name: str, x: torch.Tensor, lg: int, lg_blowup: int) -> None:
+    _check_domain(name, x, lg)
+    if lg + lg_blowup > get_field(name).two_adicity:
+        raise SpparkError(1, f"{name}: extended domain 2^{lg + lg_blowup} "
+                             f"exceeds two-adicity")
+
+
+def lde_dev(field, x: torch.Tensor, lg_domain: int,
+            lg_blowup: int) -> torch.Tensor:
+    """Low-degree extension: 2^lg evaluations over H -> 2^(lg + blowup)
+    evaluations over the coset g*H' (NTT::LDE_aux without the aux copy)."""
+    name = _field_name(field)
+    _check_lde(name, x, lg_domain, lg_blowup)
+    return fused.lde(name, x, lg_domain, lg_blowup)
+
+
+def lde_aux_dev(field, x: torch.Tensor, lg_domain: int, lg_blowup: int):
+    """LDE returning (extended evaluations, coefficients)."""
+    name = _field_name(field)
+    _check_lde(name, x, lg_domain, lg_blowup)
+    return fused.lde(name, x, lg_domain, lg_blowup, aux=True)
+
+
+def lde(field, inout: np.ndarray, lg_domain: int, lg_blowup: int,
+        device=None) -> np.ndarray:
+    x = gl64.from_wire(inout, resolve(device))
+    return gl64.to_wire(lde_dev(field, x, lg_domain, lg_blowup))
+
+
+def lde_powers_dev(field, x: torch.Tensor, lg_domain: int,
+                   bitrev: bool = True) -> torch.Tensor:
+    """x[i] * g^bitrev(i) (NTT::LDE_powers); natural i with bitrev=False."""
+    pm = get_parameters(_field_name(field), x.device)
+    return gl64.mul(x, pm.coset_powers(lg_domain, False, bitrev=bitrev))
+
+
+def lde_expand_dev(field, x: torch.Tensor, lg_domain: int,
+                   lg_blowup: int) -> torch.Tensor:
+    """Spread bit-reversed coefficients into the blown-up bit-reversed
+    domain without the coset shift: the value at i lands at i << blowup,
+    zeros between (NTT::LDE_expand)."""
+    out = torch.zeros(x.shape[:-1] + (1 << lg_domain, 1 << lg_blowup),
+                      dtype=x.dtype, device=x.device)
+    out[..., 0] = x
+    return out.reshape(x.shape[:-1] + (1 << (lg_domain + lg_blowup),))
+
+
+__all__ = [
+    "InputOutputOrder", "Direction", "Type",
+    "base", "base_dev", "ntt", "intt", "coset_ntt", "coset_intt",
+    "lde", "lde_dev", "lde_aux_dev", "lde_powers_dev", "lde_expand_dev",
+    "bit_reverse", "bitrev_indices",
+]
