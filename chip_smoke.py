@@ -4,8 +4,8 @@
 
 Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
   1. prints the toolchain, the card, and the build time;
-  2. holds each kernel against its plain PyTorch version on the card, at
-     the listed shapes and options and at the shapes the main path gives
+  2. holds each NTT kernel against its plain PyTorch version on the card,
+     at the listed shapes and options and at the shapes the main path gives
      it: exact equality (integer field arithmetic, tolerance zero);
   3. drives the main path, a Goldilocks forward NTT of 2^24 through the
      host-array entry point `ntt.ntt`, with the launch counts set to 0
@@ -15,15 +15,36 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
   4. drives the coset LDE 2^24 with blowup 4 (the six-step at lg 26) the
      same way; checks it against the plain path on the card, the inverse
      round trip and the oracle at lg 10;
-  5. times the NTT, the LDE and each kernel alone at its 2^24 shapes with
-     CUDA events, beside the plain versions and the kernels' bounds;
-  6. prints one JSON line of the kernels, the card's name and power limit,
+  5. times the NTT, the LDE and each NTT kernel alone at its 2^24 shapes
+     with CUDA events, beside the plain versions and the kernels' bounds;
+  6. holds the Montgomery multiply and the three xyzz point kernels against
+     their plain versions on test_bm64, Pasta and BLS12-381, exactly, with
+     edge values and planted special lanes (empty bucket, point at
+     infinity, doubling, cancellation, a warp with no doubling lane);
+  7. drives the MSM main path, BLS12-381 G1 2^24 through
+     `MSMContext.set_points` + `invoke` on device-resident scalar words,
+     with the launch counts set to 0 just before and read just after;
+     checks it against the exact oracle over the whole input (2^11
+     distinct points tiled), the chunked invoke, and at 2^10 `msm_naive`
+     (zero, r - 1, doubling and cancelling scalars), Montgomery-form
+     scalars and the plain path on the card;
+  8. drives Pasta G1 2^20 the same way (oracle, 2^10 checks);
+  9. times both MSMs; profiles one 2^24 invoke for its peak memory, busy
+     share and phases (the stages' record_function ranges) and its device
+     time by kernel; times each MSM kernel alone at its main-path shapes,
+     beside the plain versions and the bounds;
+ 10. prints one JSON line of the kernels, the card's name and power limit,
      and last {"ok": true, "device": {...}}.
+Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
+integer operations over the card's INT32 rate (SMs x 64 lanes x the
+maximum SM clock, read from nvidia-smi).
 Any failed check raises, so the run exits non-zero and prints no last line.
 It exits non-zero at once without a CUDA device or without the package.
 """
 
 import json
+import random
+import re
 import statistics
 import subprocess
 import sys
@@ -31,11 +52,9 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate, and the float32
-# rate outside the tensor cores (67 T/s), taken as the rate of the 32-bit
-# integer operations the butterflies are made of
+# H100 SXM device memory rate (NVIDIA data sheet); the 32-bit integer rate
+# is read from the card (int32_rate)
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
 # 32-bit integer operations counted per radix-2 butterfly (one 64x64 ->
 # 128-bit product as four 32x32 products, its reduction, one add, one sub)
 # and per extra field multiply; a floor, not a count of issued instructions
@@ -46,6 +65,13 @@ WORD = 8
 FIELD = "goldilocks"
 LG = 24
 LG_BLOWUP = 2
+
+MSM_CURVE, MSM_LG = "bls12_381", 24      # BASELINE config 4
+PASTA_CURVE, PASTA_LG = "pallas", 20     # BASELINE config 3
+LG_BASE = 11        # distinct points, tiled (the reference bench protocol)
+LG_SMALL = 10       # the msm_naive and plain-path checks
+EC_CURVES = ("test_bm64", "pallas", "bls12_381")
+M32 = 0xFFFFFFFF
 
 
 def check(cond, what):
@@ -60,6 +86,26 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def int32_rate():
+    """32-bit integer operations per second: SMs x 64 INT32 lanes x the
+    maximum SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    import torch
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 64 * mhz * 1e6
+
+
+def bound(nbytes, ops, rate):
+    """(bound ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
 
 
 def max_abs_err(a, b):
@@ -79,6 +125,500 @@ def median_ms(fn, reps, warmup=1):
     return statistics.median(time_ms(fn, reps=reps, warmup=warmup))
 
 
+# -- MSM phases (6-9) -----------------------------------------------------------
+
+def word_err(a, b):
+    """Largest |a - b| over u32 words of two coordinate tuples (0 =
+    equal); any shape mismatch counts as 2^32."""
+    import torch
+    err = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            return 1 << 32
+        d = (x.to(torch.int64) & M32) - (y.to(torch.int64) & M32)
+        if d.numel():
+            err = max(err, int(d.abs().max()))
+    return err
+
+
+def rand_canon(F, n, rng, dev):
+    """(n32, n) random canonical words, the edge values 0, 1, p - 1 and
+    R mod p in the first lanes."""
+    import torch
+    from sppark_tpu_torch.ff.kernels import int_words
+    w = rng.integers(0, 1 << 32, size=(F.n32, n), dtype=np.uint64)
+    w = w.astype(np.uint32)
+    w[-1] %= np.uint32(F.p >> (32 * (F.n32 - 1)))
+    for k, v in enumerate([0, 1, F.p - 1, F.params.R % F.p][:n]):
+        w[:, k] = int_words(v, F.n32)
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def scalar_words(ints, n_words, dev):
+    import torch
+    w = np.array([[(s >> (32 * i)) & M32 for s in ints]
+                  for i in range(n_words)], dtype=np.uint32)
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def ec_cases(curve, n, dev, seed):
+    """Point-kernel inputs over n lanes (n >= 64): xyzz buckets p with
+    ZZ != 1, affine points a, xyzz points q with ZZ != 1.  Lanes 0..31 (one
+    warp) are generic: no doubling lane.  The specials sit in the second
+    warp: lane 33 doubles (a, q == p), 34 cancels (a, q == -p), 35 has a
+    and q at infinity, 36 an empty bucket p, 37 both, 38 Y == 0 (a
+    doubling to infinity); the last two lanes double and cancel again."""
+    import torch
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.params import get_curve
+
+    cp = get_curve(curve)
+    o = get_oracle(cp)
+    ops = get_curve_ops(curve, FK.PLAIN)
+    F = ops.F
+    rng = random.Random(seed)
+    pool = [o.random_point(rng) for _ in range(16)]
+    twice = [o.jacobian_to_affine(o.jacobian_dbl(o.to_jacobian(P)))
+             for P in pool]
+    j = [rng.randrange(16) for _ in range(n)]
+    aff = [pool[(j[i] + 1 + rng.randrange(15)) % 16] for i in range(n)]
+    for lane in (33, n - 2):
+        aff[lane] = twice[j[lane]]
+    for lane in (34, n - 1):
+        aff[lane] = o.affine_neg(twice[j[lane]])
+    aff[35] = aff[37] = o.infinity_affine()
+    # p: 2 P_j by the plain doubling, so ZZ != 1
+    p = ops.xyzz_dbl(ops.affine_to_xyzz(ops.affine_from_ints(
+        [pool[k] for k in j], dev)))
+    p = tuple(c.clone() for c in p)
+    for c in p:
+        c[:, 36:38] = 0
+    p[1][:, 38] = 0
+    a = ops.affine_from_ints(aff, dev)
+    # q: a rescaled by a random lambda: (x l^2, y l^3, l^2, l^3)
+    lam = F.from_int_list([rng.randrange(1, F.p) for _ in range(n)],
+                          device=dev)
+    l2 = F.sqr(lam)
+    l3 = F.mul(l2, lam)
+    q = ops._sel(ops.affine_is_inf(a), ops.xyzz_infinity((n,), dev),
+                 (F.mul(a[0], l2), F.mul(a[1], l3), l2, l3))
+    return p, a, q
+
+
+def msm_input(curve, lg, dev):
+    """The reference bench protocol (bench.py:287-301, 322-328): 2^11
+    distinct random points tiled to 2^lg with infinity at index 3, seeded
+    numpy scalar words with the top word reduced below the order's."""
+    import torch
+    from sppark_tpu_torch.ec import get_curve_ops
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.params import get_curve
+
+    cp = get_curve(curve)
+    n, nbase = 1 << lg, 1 << LG_BASE
+    rng = random.Random(42)
+    base = [get_oracle(cp).random_point(rng) for _ in range(nbase)]
+    bx, by = get_curve_ops(curve).affine_from_ints(base, dev)
+    px, py = bx.repeat(1, n // nbase), by.repeat(1, n // nbase)
+    px[:, 3] = 0
+    py[:, 3] = 0
+    n_words = (cp.scalar.bits + 31) // 32
+    words = np.random.default_rng(42).integers(
+        0, 1 << 32, size=(n_words, n), dtype=np.uint64).astype(np.uint32)
+    words[-1] %= np.uint32(max(cp.scalar.modulus >> (32 * (n_words - 1)),
+                               1))
+    return base, (px, py), words, torch.from_numpy(words.view(np.int32)).to(
+        dev)
+
+
+def tiled_oracle(curve, base, words):
+    """The exact MSM of a tiled input: point i is base[i mod 2^11] (index 3
+    at infinity), so MSM = sum_j (sum_{i = j mod 2^11, i != 3} s_i mod r)
+    B_j.  The class sums run in numpy over u64 words (2^13 terms of < 2^32
+    each cannot overflow)."""
+    from sppark_tpu_torch.oracle.msm import msm_naive
+    from sppark_tpu_torch.params import get_curve
+
+    cp = get_curve(curve)
+    n_words, n = words.shape
+    nbase = len(base)
+    sums = words.reshape(n_words, n // nbase, nbase).sum(axis=1,
+                                                         dtype=np.uint64)
+    cls = [sum(int(sums[w, j]) << (32 * w) for w in range(n_words))
+           for j in range(nbase)]
+    cls[3] -= sum(int(words[w, 3]) << (32 * w) for w in range(n_words))
+    return msm_naive(cp, base, [c % cp.scalar.modulus for c in cls])
+
+
+def reset_all():
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    EK.reset_launches()
+    FK.reset_launches()
+
+
+def read_all():
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    return {**EK.launches, **FK.launches}
+
+
+def msm_main(curve, lg, dev, full):
+    """Phases 7/8: the MSM of 2^lg through the entry points, launch counts
+    around it, and its checks.  Returns (ctx, words on the device,
+    launches)."""
+    import torch
+    from sppark_tpu_torch.ec import get_curve_ops
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import MSMContext, MSMSlabStages
+    from sppark_tpu_torch.msm import pippenger, slab
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.oracle.msm import msm_naive
+    from sppark_tpu_torch.params import get_curve
+
+    cp = get_curve(curve)
+    n = 1 << lg
+    t0 = time.perf_counter()
+    base, pts, words, wd = msm_input(curve, lg, dev)
+    print(f"{curve} 2^{lg}: input made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ctx = MSMContext(curve, n)
+    ctx.set_points(pts)
+    cap, n_rows, wg = ctx.stages.plan(n)
+    print(f"{curve} 2^{lg}: wbits {ctx.wbits}, nwins {ctx.nwins}, "
+          f"slab cap {cap} x {n_rows} rows per window, {wg} window(s) per "
+          f"group, {ctx.nwins // wg} group(s)", flush=True)
+    torch.cuda.synchronize()
+    reset_all()
+    got = ctx.invoke(wd)
+    torch.cuda.synchronize()
+    launches = read_all()
+    print(f"main path MSM {curve} 2^{lg} launches: {launches}", flush=True)
+    check(all(v > 0 for v in launches.values()),
+          f"MSM {curve} 2^{lg} went through madd, add, dbl and the "
+          f"Montgomery multiply")
+    t0 = time.perf_counter()
+    want = tiled_oracle(curve, base, words)
+    check(got == want, f"MSM {curve} 2^{lg} == exact oracle over all "
+                       f"2^{lg} terms ({time.perf_counter() - t0:.1f} s)")
+    if full:
+        ctx_c = MSMContext(curve, n, chunk=n >> 2)
+        ctx_c.set_points(pts)
+        check(ctx_c.invoke(wd) == want,
+              f"MSM {curve} 2^{lg} chunked by 2^{lg - 2} == the same point")
+        del ctx_c
+    # small: msm_naive with planted scalars and points, Montgomery scalars
+    o = get_oracle(cp)
+    r = cp.scalar.modulus
+    m = 1 << LG_SMALL
+    spts = list(base[:m])
+    spts[3] = o.infinity_affine()
+    spts[5] = spts[4]                       # doubles in its bucket
+    spts[7] = o.affine_neg(spts[6])         # cancels in its bucket
+    rng = random.Random(3)
+    sc = [rng.randrange(r) for _ in range(m)]
+    sc[:8] = [0, r - 1, 7, 11, 2, 2, 3, 3]
+    want_s = msm_naive(cp, spts, sc)
+    ctx_s = MSMContext(curve, m)
+    check(ctx_s.invoke(sc, points=spts) == want_s,
+          f"MSM {curve} 2^{LG_SMALL} == msm_naive (0, r-1, doubling and "
+          f"cancelling terms)")
+    mont = scalar_words([cp.scalar.to_mont(s) for s in sc], ctx_s.n_words,
+                        dev)
+    check(ctx_s.invoke(mont, points=spts, mont=True) == want_s,
+          f"MSM {curve} 2^{LG_SMALL} with Montgomery-form scalars")
+    if full:
+        st = MSMSlabStages(curve, ctx_s.wbits, ctx_s.nwins, ctx_s.n_words,
+                           kern=EK.PLAIN)
+        F = get_curve_ops(curve, FK.PLAIN).F
+        rows = slab.point_rows(F, *get_curve_ops(curve).affine_from_ints(
+            spts, dev))
+        t0 = time.perf_counter()
+        wx, wy = st(scalar_words(sc, ctx_s.n_words, dev), rows)
+        plain = pippenger.collect(cp, ctx_s.wbits, ctx_s.nwins, wx, wy)
+        check(plain == want_s, f"MSM {curve} 2^{LG_SMALL} on the plain path "
+                               f"on the card == msm_naive "
+                               f"({time.perf_counter() - t0:.1f} s)")
+    return ctx, wd, launches
+
+
+def wall_ms(fn, reps):
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def kernel_ms(fn, reps):
+    """Device time per call over `reps` back-to-back calls between two CUDA
+    events, after one warm-up call: launch overhead hides behind the
+    device work where a call takes longer to run than to issue."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def prod_ops(n32):
+    """32-bit integer operations of one Montgomery product: 2 n32^2
+    32x32->64 products, each counted as 2 IMADs."""
+    return 4 * n32 * n32
+
+
+def sqr_ops(n32):
+    """32-bit integer operations of one Montgomery squaring (mont.cuh:
+    the n32 (n32 - 1) / 2 off-diagonal products once, the n32 diagonal
+    ones, then the n32^2 of the reduction), 2 IMADs each."""
+    return 3 * n32 * n32 + n32
+
+
+MSM_RANGES = ("msm.schedule", "msm.gather", "msm.madd_rounds", "msm.fold",
+              "msm.integrate", "msm.to_affine")
+
+
+def kernel_group(name):
+    """A device event's name, the point and field kernels by their op."""
+    m = re.search(r"ec_kernel<\d+, ?(\d)>", name)
+    if m:
+        return ("ec_xyzz_madd", "ec_xyzz_add", "ec_xyzz_dbl")[int(m.group(1))]
+    return "bigmont_ew" if "ew_kernel<" in name else name[:60]
+
+
+def profile_breakdown(prof):
+    """From one profiled invoke: (device busy ms, {range: (device ms, host
+    ms)} over the stages' record_function ranges, {kernel: (device ms,
+    launches)}).  A device event belongs to the range whose host interval
+    holds the runtime call that launched it (matched by CUPTI correlation
+    id): the kernels launched through ctypes carry no link to the torch op
+    around them.  The device-side copies of the ranges are not work."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    spans, launched_at, device = [], {}, []
+    for e in events:
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                device.append(e)
+        elif e.name() in MSM_RANGES:
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                          e.name()))
+        elif e.name().startswith("cu"):        # CUDA runtime / driver call
+            launched_at[e.correlation_id()] = e.start_ns()
+    phases = {k: [0.0, 0.0] for k in MSM_RANGES}
+    for lo, hi, name in spans:
+        phases[name][1] += (hi - lo) / 1e6
+    by_kernel = {}
+    busy = 0.0
+    for e in device:
+        ms = e.duration_ns() / 1e6
+        busy += ms
+        k = kernel_group(e.name())
+        t, c = by_kernel.get(k, (0.0, 0))
+        by_kernel[k] = (t + ms, c + 1)
+        at = launched_at.get(e.correlation_id())
+        for lo, hi, name in spans:
+            if at is not None and lo <= at < hi:
+                phases[name][0] += ms
+                break
+    return busy, {k: tuple(v) for k, v in phases.items()}, by_kernel
+
+
+def msm_phases(dev, card, rate):
+    """Phases 6-9.  Returns the kernels' entries of the summary line."""
+    import torch
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    from sppark_tpu_torch.msm import slab
+    from sppark_tpu_torch.params import get_curve
+
+    errs = {k: 0 for k in ("bigmont_ew", "ec_xyzz_madd", "ec_xyzz_add",
+                           "ec_xyzz_dbl")}
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        e = word_err(got, want)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"{name} == plain: {what}")
+
+    # -- 6. kernels vs plain ----------------------------------------------------
+    rng = np.random.default_rng(7)
+    for curve in EC_CURVES:
+        fp = get_curve(curve).field
+        F = get_field_ops(fp)
+        for n in (1, 1000, 1 << 16):
+            x, y = rand_canon(F, n, rng, dev), rand_canon(F, n, rng, dev)
+            y = y.flip(1).contiguous()      # edge values meet edge values
+            same("bigmont_ew", FK.mont_mul(x, y, fp),
+                 FK.mont_mul_plain(x, y, fp), f"{curve} mul {n} lanes")
+            same("bigmont_ew", FK.mont_sqr(x, fp), FK.mont_sqr_plain(x, fp),
+                 f"{curve} sqr {n} lanes")
+        p, a, q = ec_cases(curve, 1000, dev, seed=11)
+        same("ec_xyzz_madd", EK.xyzz_madd(curve, p, a),
+             EK.xyzz_madd_plain(curve, p, a), f"{curve} madd, planted lanes")
+        same("ec_xyzz_add", EK.xyzz_add(curve, p, q),
+             EK.xyzz_add_plain(curve, p, q), f"{curve} add, planted lanes")
+        same("ec_xyzz_dbl", EK.xyzz_dbl(curve, p),
+             EK.xyzz_dbl_plain(curve, p), f"{curve} dbl, planted lanes")
+        # no doubling lane anywhere (the gated leg never runs)
+        k = 32
+        same("ec_xyzz_madd",
+             EK.xyzz_madd(curve, tuple(c[:, :k] for c in p),
+                          tuple(c[:, :k] for c in a)),
+             EK.xyzz_madd_plain(curve, tuple(c[:, :k] for c in p),
+                                tuple(c[:, :k] for c in a)),
+             f"{curve} madd, one warp with no special lane")
+
+    # -- 7. main path: BLS12-381 G1 2^24 -----------------------------------------
+    ctx, wd, launches = msm_main(MSM_CURVE, MSM_LG, dev, full=True)
+    # -- 8. Pasta G1 2^20 ------------------------------------------------------
+    pctx, pwd, plaunches = msm_main(PASTA_CURVE, PASTA_LG, dev, full=False)
+
+    # -- 9. times ------------------------------------------------------------------
+    n = 1 << MSM_LG
+    t_msm = wall_ms(lambda: ctx.invoke(wd), reps=3)
+    print(f"time MSM {MSM_CURVE} 2^{MSM_LG}: {t_msm:.4f} ms (median of 3, "
+          f"wall clock), {n / (t_msm * 1e-3):.4e} points/s  [{card}]",
+          flush=True)
+    # peak device memory, the device's busy share and the phase breakdown
+    # over one invoke (torch.profiler, CUPTI)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.invoke(wd)
+        torch.cuda.synchronize()
+        t_prof = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, phases, by_kernel = profile_breakdown(prof)
+    print(f"MSM {MSM_CURVE} 2^{MSM_LG}: peak device memory {peak:.3f} GiB; "
+          + (f"device busy {busy:.4f} ms of {t_prof:.4f} ms wall under the "
+             f"profiler, idle share {1 - busy / t_prof:.4f}" if busy > 0
+             else "device busy time not measured (no device events)")
+          + f"  [{card}]", flush=True)
+    st = ctx.stages
+    cap, _, wg = st.plan(n)
+    sv, row_src, row_len, _, _, _, stats = st.schedule(wd)
+    rounds, max_rows = (int(v) for v in stats.tolist())
+    print(f"MSM {MSM_CURVE} 2^{MSM_LG} phases under the profiler (device "
+          f"ms of the kernels launched in each / host ms in it): " + ", ".join(
+              f"{k} {d:.4f} / {h:.4f}" for k, (d, h) in phases.items())
+          + f"; the ranges hold {sum(d for d, _ in phases.values()):.4f} "
+          f"of the {busy:.4f} busy ms; rounds {rounds}, fold levels "
+          f"{max(0, (max_rows - 1).bit_length())}  [{card}]", flush=True)
+    print(f"MSM {MSM_CURVE} 2^{MSM_LG} device ms by kernel (launches): "
+          + ", ".join(f"{k} {ms:.4f} ({c})" for k, (ms, c) in sorted(
+              by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
+          + f"  [{card}]", flush=True)
+    t_pasta = wall_ms(lambda: pctx.invoke(pwd), reps=3)
+    print(f"time MSM {PASTA_CURVE} 2^{PASTA_LG}: {t_pasta:.4f} ms (median "
+          f"of 3, wall clock), {(1 << PASTA_LG) / (t_pasta * 1e-3):.4e} "
+          f"points/s  [{card}]", flush=True)
+    del pctx, pwd
+
+    # each kernel alone at its main-path shapes, on the main path's data:
+    # madd on group 0's accumulators after two rounds and slot 2, add on
+    # those accumulators and their right neighbours, dbl on the window
+    # sums, mul on the batch inversion's lanes and at 2^20 lanes
+    cp = get_curve(MSM_CURVE)
+    fp = cp.field
+    N = fp.n_ref_limbs
+    win = st.window_sums(wd, ctx.rows)
+    g = slice(0, wg)
+    sl = slab.materialize(sv[g], row_src[g], row_len[g], cap, ctx.rows)
+    acc = slab.madd_rounds(MSM_CURVE, sl, 2)
+    pt = sl[2]
+    a2 = (pt[:, :N].T, pt[:, N:].T)
+    F = get_field_ops(fp)
+    partner = tuple(torch.roll(c, -1, dims=-1) for c in acc)
+    inv_lanes = torch.cat([win[2], win[3]], dim=-1)
+    big = rand_canon(F, 1 << 20, rng, dev)
+    lanes = acc[0].shape[1]
+    live = lambda c: ~F.is_zero(c)                       # noqa: E731
+    madd_full = int((live(acc[2]) & (live(a2[0]) | live(a2[1]))).sum())
+    add_full = int((live(acc[2]) & live(partner[2])).sum())
+    dbl_full = int((live(win[1]) & live(win[2])).sum())
+    M, S, adds = prod_ops(N), sqr_ops(N), 2 * N   # adds: one add or sub
+    # dbl-2008-s-1 needs a4 ZZ^2 only where a4 != 0
+    dbl_a4 = M + S + adds if cp.a4 else 0
+    cases = [
+        ("ec_xyzz_madd", lanes, lambda: EK.xyzz_madd(MSM_CURVE, acc, a2),
+         lambda: EK.xyzz_madd_plain(MSM_CURVE, acc, a2),
+         10 * 4 * N * lanes, madd_full * (8 * M + 2 * S + 7 * adds)),
+        ("ec_xyzz_add", lanes, lambda: EK.xyzz_add(MSM_CURVE, acc, partner),
+         lambda: EK.xyzz_add_plain(MSM_CURVE, acc, partner),
+         12 * 4 * N * lanes, add_full * (12 * M + 2 * S + 7 * adds)),
+        ("ec_xyzz_dbl", st.nwins, lambda: EK.xyzz_dbl(MSM_CURVE, win),
+         lambda: EK.xyzz_dbl_plain(MSM_CURVE, win),
+         8 * 4 * N * st.nwins,
+         dbl_full * (6 * M + 3 * S + 7 * adds + dbl_a4)),
+        ("bigmont_ew", inv_lanes.shape[1],
+         lambda: FK.mont_mul(inv_lanes, inv_lanes, fp),
+         lambda: FK.mont_mul_plain(inv_lanes, inv_lanes, fp),
+         3 * 4 * N * inv_lanes.shape[1], inv_lanes.shape[1] * prod_ops(N)),
+        ("bigmont_ew 2^20", 1 << 20, lambda: FK.mont_mul(big, big, fp),
+         lambda: FK.mont_mul_plain(big, big, fp),
+         3 * 4 * N << 20, prod_ops(N) << 20),
+    ]
+    timing = {}
+    for name, nl, kfn, pfn, nbytes, ops in cases:
+        key = name.split()[0]
+        same(key, kfn(), pfn(), f"{name} at the main-path shape ({nl} "
+                                f"lanes)")
+        ms = kernel_ms(kfn, reps=20)
+        pms = kernel_ms(pfn, reps=1)
+        b, by = bound(nbytes, ops, rate)
+        timing[name] = (ms, pms, b, by)
+        print(f"time {name} at {nl} lanes: {ms:.4f} ms (plain {pms:.4f} ms, "
+              f"bound {b:.4f} ms by {by}, {b / ms:.3f} of bound)  [{card}]",
+              flush=True)
+    print(json.dumps({"msm_ms": {f"{MSM_CURVE} 2^{MSM_LG}": t_msm,
+                                 f"{PASTA_CURVE} 2^{PASTA_LG}": t_pasta},
+                      "msm_phases_device_host_ms": phases,
+                      "msm_kernels_ms_launches": by_kernel,
+                      "msm_peak_gib": peak,
+                      "msm_device_busy_ms": busy,
+                      "msm_profiled_wall_ms": t_prof,
+                      "msm_launches": launches,
+                      "pasta_launches": plaunches, "card": card}))
+
+    src = "sppark_tpu_torch/csrc/"
+    replaces = {"bigmont_ew": ("bigmont.cu", "sppark_tpu/ff/bigmont.py:383"),
+                "ec_xyzz_madd": ("ec_xyzz.cu",
+                                 "sppark_tpu/ec/pallas_ops.py:387"),
+                "ec_xyzz_add": ("ec_xyzz.cu",
+                                "sppark_tpu/ec/pallas_ops.py:224"),
+                "ec_xyzz_dbl": ("ec_xyzz.cu",
+                                "sppark_tpu/ec/pallas_ops.py:336")}
+    entries = []
+    for name, (f, rep) in replaces.items():
+        ms, pms, b, by = timing[name]
+        entries.append({"name": name, "route": "cuda", "source": src + f,
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+                        "bound_ms": b, "bound_by": by, "library_ms": None})
+    return entries
+
+
 def main():
     import torch
 
@@ -95,18 +635,27 @@ def main():
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    rate = int32_rate()
 
     # -- 1. probe and build ----------------------------------------------------
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
-          f"cuda {torch.version.cuda}  device {kind}  [{card}]", flush=True)
+          f"cuda {torch.version.cuda}  device {kind}  [{card}]  "
+          f"INT32 rate {rate:.4e} op/s", flush=True)
     t0 = time.perf_counter()
     info = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{sorted(info) or 'nothing (already built)'}", flush=True)
     for name, rec in info.items():
+        entry = ""
         for line in rec["log"].splitlines():
+            m = re.search(r"Compiling entry function '\w*?"
+                          r"((?:ec|ew|rows|cols)_kernel)"
+                          r"(?:I(Li|Lb)(\d+)E(?:Li|Lb)(\d+)E)?", line)
+            if m:
+                entry = m.group(1) + (f"<{m.group(3)},{m.group(4)}>"
+                                      if m.group(3) else "")
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {name} {entry}: {line.strip()}")
 
     fp = params.get_field(FIELD)
     pm = get_parameters(FIELD, dev)
@@ -288,23 +837,18 @@ def main():
     lg2 = LG - lg1
     tw1, mid, tw2 = tables[0], tables[1], tables[2]
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
-        return max(t_bytes, t_ops) * 1e3, \
-            "bytes" if t_bytes >= t_ops else "operations"
-
     cols_ms = median_ms(lambda: K.ntt_cols(xm, tw1, lg1, mid), reps=20)
     cols_plain_ms = median_ms(lambda: K.ntt_cols_plain(xm, tw1, lg1, mid),
                               reps=3)
     cols_bound, cols_by = bound(
         WORD * (3 * n + tw1.numel()),
-        OPS_PER_BUTTERFLY * (n // 2) * lg1 + OPS_PER_MUL * n)
+        OPS_PER_BUTTERFLY * (n // 2) * lg1 + OPS_PER_MUL * n, rate)
     rows_ms = median_ms(lambda: K.ntt_rows(xm, tw2, lg2, out_t=True),
                         reps=20)
     rows_plain_ms = median_ms(
         lambda: K.ntt_rows_plain(xm, tw2, lg2, out_t=True), reps=3)
     rows_bound, rows_by = bound(WORD * (2 * n + tw2.numel()),
-                                OPS_PER_BUTTERFLY * (n // 2) * lg2)
+                                OPS_PER_BUTTERFLY * (n // 2) * lg2, rate)
     for name, ms, pms, b, by in (
             ("gl64_ntt_cols", cols_ms, cols_plain_ms, cols_bound, cols_by),
             ("gl64_ntt_rows", rows_ms, rows_plain_ms, rows_bound, rows_by)):
@@ -312,7 +856,10 @@ def main():
               f"{pms:.4f} ms, bound {b:.4f} ms by {by}, "
               f"{b / ms:.3f} of bound)  [{card}]", flush=True)
 
-    # -- 6. summary ------------------------------------------------------------
+    del xm, tables, main_shapes, state, x, y
+    msm_entries = msm_phases(dev, card, rate)
+
+    # -- 10. summary -----------------------------------------------------------
     src = "sppark_tpu_torch/csrc/ntt_gl64.cu"
     kernels_line = {"kernels": [
         {"name": "gl64_ntt_rows", "route": "cuda", "source": src,
@@ -329,7 +876,7 @@ def main():
          "max_abs_err": errs["gl64_ntt_cols"], "ms": cols_ms,
          "plain_ms": cols_plain_ms, "bound_ms": cols_bound,
          "bound_by": cols_by, "library_ms": None},
-    ]}
+    ] + msm_entries}
     print(json.dumps({"ntt_ms": t_ntt, "lde_ms": t_lde,
                       "lde_parts_ms": parts, "ntt_launches": ntt_launches,
                       "lde_launches": lde_launches, "card": card}))

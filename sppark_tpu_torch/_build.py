@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled by nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface, under `build/` next to this file
 (the directory is git-ignored), and loaded with ctypes.  The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.  All missing libraries are compiled
+file name carries a hash of its source, of every shared header
+`csrc/*.cuh` and of the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  All missing libraries are compiled
 at once, one nvcc process per source.  A failed build raises with the
 compiler's output.
 """
@@ -49,9 +50,11 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = ()) -> Dict[str, dict]:

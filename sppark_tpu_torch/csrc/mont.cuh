@@ -1,0 +1,238 @@
+// Multi-limb Montgomery field arithmetic over N 32-bit limbs, for the
+// kernels of bigmont.cu and ec_xyzz.cu (the role of sppark's
+// ff/mont_t.cuh).
+//
+// An element is N little-endian 32-bit words, R = 2^(32 N), held in
+// registers.  The field constants (p, M0 = -p^-1 mod 2^32, the Montgomery
+// one, and the curve's a4 in Montgomery form) arrive per launch in a
+// Consts<N> passed by value, so one instantiation per N serves every field
+// of that width: N = 2 (test_bm64), 8 (BN254, Pasta), 12 (BLS12-381).
+//
+// Every function takes canonical inputs (< p) and returns canonical output,
+// so the words a kernel stores are the TPU kernels' words exactly.
+//   mul: CIOS (coarsely integrated operand scanning) with 64-bit partial
+//        products, N + 2 words of state, one conditional subtraction;
+//   sqr: the off-diagonal products once, doubled, plus the diagonal, then
+//        an N-step Montgomery reduction of the 2N-word square.
+// Both are about 2 N^2 (mul) and 1.5 N^2 (sqr) 32x32->64 products.  The
+// reference's mad_n_redc uses PTX carry chains (madc.lo.cc/madc.hi.cc);
+// here the carries ride in the top half of 64-bit sums, which nvcc lowers
+// to IMAD.WIDE and IADD3 -- simpler, somewhat more instructions.
+//
+// The functions are also host-callable (MONT_HD), so the arithmetic can be
+// compiled by a host C++ compiler and checked without a card.
+
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define MONT_HD __host__ __device__ __forceinline__
+#else
+#define MONT_HD inline
+#endif
+
+namespace mont {
+
+template <int N>
+struct Fp {
+    uint32_t w[N];
+};
+
+template <int N>
+struct Consts {
+    uint32_t p[N];
+    uint32_t one[N];   // R mod p
+    uint32_t a4[N];    // curve coefficient a4, Montgomery form (0: none)
+    uint32_t m0;       // -p^-1 mod 2^32
+};
+
+// Consts from the host array [p (N words), one (N), a4 (N), m0].
+template <int N>
+inline Consts<N> make_consts(const uint32_t* h) {
+    Consts<N> c;
+    for (int i = 0; i < N; i++) {
+        c.p[i] = h[i];
+        c.one[i] = h[N + i];
+        c.a4[i] = h[2 * N + i];
+    }
+    c.m0 = h[3 * N];
+    return c;
+}
+
+template <int N>
+MONT_HD Fp<N> zero() {
+    Fp<N> r;
+#pragma unroll
+    for (int i = 0; i < N; i++) r.w[i] = 0;
+    return r;
+}
+
+template <int N>
+MONT_HD Fp<N> from_words(const uint32_t* w) {
+    Fp<N> r;
+#pragma unroll
+    for (int i = 0; i < N; i++) r.w[i] = w[i];
+    return r;
+}
+
+template <int N>
+MONT_HD bool is_zero(const Fp<N>& a) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int i = 0; i < N; i++) acc |= a.w[i];
+    return acc == 0;
+}
+
+template <int N>
+MONT_HD Fp<N> select(bool c, const Fp<N>& a, const Fp<N>& b) {
+    Fp<N> r;
+#pragma unroll
+    for (int i = 0; i < N; i++) r.w[i] = c ? a.w[i] : b.w[i];
+    return r;
+}
+
+// r = a - b over N words; returns the borrow out (0 or 1).
+template <int N>
+MONT_HD uint32_t sub_words(uint32_t* r, const uint32_t* a,
+                           const uint32_t* b) {
+    uint32_t borrow = 0;
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+        uint64_t d = (uint64_t)a[i] - b[i] - borrow;
+        r[i] = (uint32_t)d;
+        borrow = (uint32_t)(d >> 63);
+    }
+    return borrow;
+}
+
+// The final conditional subtraction: t (N words, plus `top`, the bit above
+// them) < 2p -> t mod p.
+template <int N>
+MONT_HD Fp<N> reduce_once(const uint32_t* t, uint32_t top,
+                          const Consts<N>& c) {
+    Fp<N> r, d;
+#pragma unroll
+    for (int i = 0; i < N; i++) r.w[i] = t[i];
+    uint32_t borrow = sub_words<N>(d.w, r.w, c.p);
+    return (top || !borrow) ? d : r;
+}
+
+template <int N>
+MONT_HD Fp<N> add(const Fp<N>& a, const Fp<N>& b, const Consts<N>& c) {
+    uint32_t s[N];
+    uint32_t carry = 0;
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+        uint64_t t = (uint64_t)a.w[i] + b.w[i] + carry;
+        s[i] = (uint32_t)t;
+        carry = (uint32_t)(t >> 32);
+    }
+    return reduce_once<N>(s, carry, c);
+}
+
+template <int N>
+MONT_HD Fp<N> sub(const Fp<N>& a, const Fp<N>& b, const Consts<N>& c) {
+    Fp<N> d;
+    uint32_t borrow = sub_words<N>(d.w, a.w, b.w);
+    if (borrow) {
+        uint32_t carry = 0;
+#pragma unroll
+        for (int i = 0; i < N; i++) {
+            uint64_t t = (uint64_t)d.w[i] + c.p[i] + carry;
+            d.w[i] = (uint32_t)t;
+            carry = (uint32_t)(t >> 32);
+        }
+    }
+    return d;
+}
+
+// a * b * R^-1 mod p (CIOS).
+template <int N>
+MONT_HD Fp<N> mul(const Fp<N>& a, const Fp<N>& b, const Consts<N>& c) {
+    uint32_t t[N + 2];
+#pragma unroll
+    for (int i = 0; i < N + 2; i++) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+        // t += a * b[i]
+        uint64_t C = 0;
+#pragma unroll
+        for (int j = 0; j < N; j++) {
+            uint64_t s = (uint64_t)a.w[j] * b.w[i] + t[j] + C;
+            t[j] = (uint32_t)s;
+            C = s >> 32;
+        }
+        uint64_t s = (uint64_t)t[N] + C;
+        t[N] = (uint32_t)s;
+        t[N + 1] = (uint32_t)(s >> 32);
+        // t = (t + m p) / 2^32
+        uint32_t m = t[0] * c.m0;
+        s = (uint64_t)m * c.p[0] + t[0];
+        C = s >> 32;
+#pragma unroll
+        for (int j = 1; j < N; j++) {
+            s = (uint64_t)m * c.p[j] + t[j] + C;
+            t[j - 1] = (uint32_t)s;
+            C = s >> 32;
+        }
+        s = (uint64_t)t[N] + C;
+        t[N - 1] = (uint32_t)s;
+        t[N] = t[N + 1] + (uint32_t)(s >> 32);
+    }
+    return reduce_once<N>(t, t[N], c);
+}
+
+// a^2 * R^-1 mod p.
+template <int N>
+MONT_HD Fp<N> sqr(const Fp<N>& a, const Consts<N>& c) {
+    uint32_t t[2 * N];
+#pragma unroll
+    for (int i = 0; i < 2 * N; i++) t[i] = 0;
+    // off-diagonal products a_i a_j, i < j
+#pragma unroll
+    for (int i = 0; i < N - 1; i++) {
+        uint64_t C = 0;
+#pragma unroll
+        for (int j = i + 1; j < N; j++) {
+            uint64_t s = (uint64_t)a.w[i] * a.w[j] + t[i + j] + C;
+            t[i + j] = (uint32_t)s;
+            C = s >> 32;
+        }
+        t[i + N] = (uint32_t)C;
+    }
+    // double them (their sum is < 2^(64N - 1), so no bit leaves the top)
+#pragma unroll
+    for (int k = 2 * N - 1; k > 0; k--) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+    t[0] <<= 1;
+    // add the diagonal a_i^2
+    uint64_t C = 0;
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+        uint64_t s = (uint64_t)a.w[i] * a.w[i] + t[2 * i] + C;
+        t[2 * i] = (uint32_t)s;
+        s = (uint64_t)t[2 * i + 1] + (s >> 32);
+        t[2 * i + 1] = (uint32_t)s;
+        C = s >> 32;
+    }
+    // Montgomery reduction of the 2N-word square; `top` carries the bit
+    // above the current window from one step to the next
+    uint32_t top = 0;
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+        uint32_t m = t[i] * c.m0;
+        C = 0;
+#pragma unroll
+        for (int j = 0; j < N; j++) {
+            uint64_t s = (uint64_t)m * c.p[j] + t[i + j] + C;
+            t[i + j] = (uint32_t)s;
+            C = s >> 32;
+        }
+        uint64_t s = (uint64_t)t[i + N] + C + top;
+        t[i + N] = (uint32_t)s;
+        top = (uint32_t)(s >> 32);
+    }
+    return reduce_once<N>(t + N, top, c);
+}
+
+}  // namespace mont

@@ -1,0 +1,201 @@
+"""G1 point arithmetic over batches of field words: the port of
+sppark_tpu/ec/core.py for degree-1 curves.
+
+A point batch is a tuple of coordinates, each `(n32, *batch)` int32 words:
+
+  * affine = (x, y)            infinity encoded x == y == 0
+                               (ec/affine_t.hpp:31-36)
+  * xyzz   = (x, y, zz, zzz)   infinity zz == 0 (ec/xyzz_t.hpp:16)
+
+Every op is branchless across lanes: the legs are evaluated and lanes
+select between them.  These are the plain versions of the point kernels
+(ec/kernels.py), so the select chains give the kernels' priority order
+(sppark_tpu/ec/pallas_ops.py): in `xyzz_add`, q at infinity wins over p at
+infinity, where the JAX package's plain add lets p win; the two differ only
+in the X and Y words of a sum of two infinities, which the MSM never
+forms with nonzero X or Y.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..ff.bigmont import get_field_ops
+from ..ff.kernels import KERNELS, FieldKernels
+from ..oracle.ec import AffinePoint
+from ..params import CurveParams, get_curve
+
+
+class CurveOps:
+    """All point operations for one G1 curve, vectorised over a batch."""
+
+    def __init__(self, curve: CurveParams, kern: FieldKernels = KERNELS):
+        self.curve = curve
+        self.F = get_field_ops(curve.field, kern)
+
+    def _sel(self, cond, a, b):
+        return tuple(self.F.select(cond, x, y) for x, y in zip(a, b))
+
+    # -- affine ------------------------------------------------------------------
+    def affine_is_inf(self, a):
+        return self.F.is_zero(a[0]) & self.F.is_zero(a[1])
+
+    def affine_neg(self, a):
+        return (a[0], self.F.neg(a[1]))
+
+    def affine_to_xyzz(self, a):
+        F = self.F
+        z = F.select(self.affine_is_inf(a), F.zeros(a[0].shape[1:],
+                                                    a[0].device),
+                     F.ones(a[0].shape[1:], a[0].device))
+        return (a[0], a[1], z, z)
+
+    # -- xyzz --------------------------------------------------------------------
+    def xyzz_is_inf(self, p):
+        return self.F.is_zero(p[2])
+
+    def xyzz_infinity(self, batch_shape=(), device=None):
+        z = self.F.zeros(batch_shape, device)
+        return (z, z, z, z)
+
+    def _dbl_leg(self, p):
+        """dbl-2008-s-1 (6M + 3S; ec/xyzz_t.hpp:111-116), M = 3X^2 +
+        a4 ZZ^2, without the special cases."""
+        F = self.F
+        x, y, zz, zzz = p
+        U = F.add(y, y)
+        V = F.sqr(U)
+        W = F.mul(U, V)
+        S = F.mul(x, V)
+        x2 = F.sqr(x)
+        M = F.add(F.add(x2, x2), x2)
+        if self.curve.a4:
+            a = F.const(self.curve.a4, x.shape[1:], x.device)
+            M = F.add(M, F.mul(a, F.sqr(zz)))
+        X3 = F.sub(F.sqr(M), F.add(S, S))
+        Y3 = F.sub(F.mul(M, F.sub(S, X3)), F.mul(W, y))
+        return (X3, Y3, F.mul(V, zz), F.mul(W, zzz))
+
+    def xyzz_dbl(self, p):
+        """Doubling; y == 0 or zz == 0 gives infinity."""
+        F = self.F
+        bad = F.is_zero(p[1]) | F.is_zero(p[2])
+        inf = self.xyzz_infinity(p[0].shape[1:], p[0].device)
+        return self._sel(bad, inf, self._dbl_leg(p))
+
+    def xyzz_add(self, p, q):
+        """Unified add (add-2008-s, 12M + 2S; ec/xyzz_t.hpp:117-201):
+        either infinity, doubling and cancellation handled per lane."""
+        F = self.F
+        X1, Y1, ZZ1, ZZZ1 = p
+        X2, Y2, ZZ2, ZZZ2 = q
+        U1 = F.mul(X1, ZZ2)
+        S1 = F.mul(Y1, ZZZ2)
+        P = F.sub(F.mul(X2, ZZ1), U1)
+        R = F.sub(F.mul(Y2, ZZZ1), S1)
+        PP = F.sqr(P)
+        PPP = F.mul(P, PP)
+        Q = F.mul(U1, PP)
+        X3 = F.sub(F.sub(F.sqr(R), PPP), F.add(Q, Q))
+        Y3 = F.sub(F.mul(R, F.sub(Q, X3)), F.mul(S1, PPP))
+        ZZ3 = F.mul(F.mul(ZZ1, ZZ2), PP)
+        ZZZ3 = F.mul(F.mul(ZZZ1, ZZZ2), PPP)
+        same_x, same_y = F.is_zero(P), F.is_zero(R)
+        out = self._sel(same_x & same_y, self.xyzz_dbl(p),
+                        (X3, Y3, ZZ3, ZZZ3))
+        inf = self.xyzz_infinity(X1.shape[1:], X1.device)
+        out = self._sel(same_x & ~same_y, inf, out)
+        out = self._sel(self.xyzz_is_inf(p), q, out)
+        return self._sel(self.xyzz_is_inf(q), p, out)
+
+    def xyzz_madd(self, p, a):
+        """Unified mixed add of affine points, the MSM bucket op
+        (madd-2008-s, 8M + 2S fast leg; ec/xyzz_t.hpp:352-430)."""
+        F = self.F
+        ax, ay = a
+        X1, Y1, ZZ1, ZZZ1 = p
+        P = F.sub(F.mul(ax, ZZ1), X1)
+        R = F.sub(F.mul(ay, ZZZ1), Y1)
+        PP = F.sqr(P)
+        PPP = F.mul(P, PP)
+        Q = F.mul(X1, PP)
+        X3 = F.sub(F.sub(F.sqr(R), PPP), F.add(Q, Q))
+        Y3 = F.sub(F.mul(R, F.sub(Q, X3)), F.mul(Y1, PPP))
+        added = (X3, Y3, F.mul(ZZ1, PP), F.mul(ZZZ1, PPP))
+        a_inf = self.affine_is_inf(a)
+        p_inf = self.xyzz_is_inf(p)
+        same_x, same_y = F.is_zero(P), F.is_zero(R)
+        out = self._sel(same_x & same_y & ~p_inf & ~a_inf,
+                        self.xyzz_dbl(p), added)
+        inf = self.xyzz_infinity(X1.shape[1:], X1.device)
+        out = self._sel(same_x & ~same_y, inf, out)
+        out = self._sel(p_inf, self.affine_to_xyzz(a), out)
+        return self._sel(a_inf, p, out)
+
+    def xyzz_to_affine(self, p):
+        """Batch normalisation along the last axis: ONE Montgomery-trick
+        inversion over zz and zzz side by side.  Infinity lanes map to
+        (0, 0)."""
+        F = self.F
+        x, y, zz, zzz = p
+        n = zz.shape[-1]
+        inv = F.batch_inv(torch.cat([zz, zzz], dim=-1))
+        ax = F.mul(x, inv[..., :n])
+        ay = F.mul(y, inv[..., n:])
+        inf = self.xyzz_is_inf(p)
+        zero = torch.zeros_like(x)
+        return (F.select(inf, zero, ax), F.select(inf, zero, ay))
+
+    # -- host conversion -------------------------------------------------------------
+    def affine_from_ints(self, pts: Sequence[AffinePoint], device=None):
+        """Oracle AffinePoints (or (x, y, inf) records) -> (x, y) words."""
+        xs = [0 if getattr(p, "inf", False) else p.x for p in pts]
+        ys = [0 if getattr(p, "inf", False) else p.y for p in pts]
+        return (self.F.from_int_list(xs, device=device),
+                self.F.from_int_list(ys, device=device))
+
+    def affine_to_ints(self, a) -> List[tuple]:
+        return list(zip(self.F.to_int_list(a[0]), self.F.to_int_list(a[1])))
+
+    def coord_bytes(self) -> int:
+        return 4 * self.F.n32
+
+    def affine_from_wire(self, x_words=None, y_words=None, buf=None,
+                         ffi_affine_sz: int = 0, device=None):
+        """Wire ingestion of an affine batch, the strided FFI upload
+        (msm/pippenger.cuh:379, 501-503) with the Affine_inf_t layout
+        (ec/affine_t.hpp:75-122).
+
+        Either (n, n32) u32 word arrays per coordinate, in Montgomery form,
+        or a flat byte `buf` with per-point stride `ffi_affine_sz` holding
+        x || y [|| inf]; points whose inf byte is set become (0, 0)."""
+        if buf is not None:
+            raw = np.frombuffer(np.ascontiguousarray(buf), dtype=np.uint8)
+            cb = self.coord_bytes()
+            sz = ffi_affine_sz or 2 * cb
+            if sz < 2 * cb or len(raw) % sz:
+                raise ValueError(f"buffer length {len(raw)} is not a "
+                                 f"multiple of the point stride {sz} "
+                                 f"(coordinate bytes {cb})")
+            pts = raw.reshape(-1, sz)
+            x_words = np.ascontiguousarray(pts[:, :cb]).view(np.uint32)
+            y_words = np.ascontiguousarray(pts[:, cb:2 * cb]).view(np.uint32)
+            if sz > 2 * cb:
+                inf = pts[:, 2 * cb] != 0
+                x_words = np.where(inf[:, None], 0, x_words).astype(np.uint32)
+                y_words = np.where(inf[:, None], 0, y_words).astype(np.uint32)
+        return (self.F.from_wire_np(x_words, device),
+                self.F.from_wire_np(y_words, device))
+
+    def affine_to_wire(self, a):
+        """(x, y) words -> ((n, n32), (n, n32)) wire word arrays."""
+        return self.F.to_wire_np(a[0]), self.F.to_wire_np(a[1])
+
+
+@functools.lru_cache(maxsize=None)
+def get_curve_ops(name: str, kern: FieldKernels = KERNELS) -> CurveOps:
+    return CurveOps(get_curve(name), kern)

@@ -1,0 +1,208 @@
+"""Multi-limb Montgomery fields (BN254, BLS12-381, Pasta, test_bm64): the
+port of sppark_tpu/ff/bigmont.py:BigMontField and ff/base.py's defaults.
+
+An element is n32 = mont_bits / 32 little-endian 32-bit words, limb-major
+`(n32, *batch)`, held as the u32 bit pattern in an int32 tensor: adjacent
+lanes sit at adjacent addresses, so a kernel with one thread per lane reads
+coalesced.  R = 2^(32 n32) = 2^(16 L), so the Montgomery words are the JAX
+package's `(L, *batch)` 16-bit-limb planes packed in pairs
+(`from_jax_planes` / `to_jax_planes`).
+
+`mul` and `sqr` go through the field kernels a field is made with
+(ff/kernels.py: the bigmont_ew kernel on CUDA tensors by default, or the
+plain versions); `add`, `sub`, `neg`, `select` and the rest are plain
+PyTorch, as the JAX package left them to XLA.  Inputs are canonical
+(< p) and so is every output.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Iterable, List
+
+import numpy as np
+import torch
+
+from ..params import FieldParams, get_field
+from .kernels import (KERNELS, FieldKernels, carry_words, int_words,
+                      reduce_once, sub_words, words32, words64)
+
+
+def from_jax_planes(planes: np.ndarray, device=None) -> torch.Tensor:
+    """The JAX package's (L, ...) uint32 planes of 16-bit limbs -> the
+    port's (L/2, ...) int32 words."""
+    a = np.asarray(planes, dtype=np.uint32)
+    w = a[0::2] | (a[1::2] << np.uint32(16))
+    return torch.from_numpy(np.ascontiguousarray(w).view(np.int32)).to(device)
+
+
+def to_jax_planes(t: torch.Tensor) -> np.ndarray:
+    """The port's (n32, ...) int32 words -> the JAX package's (2 n32, ...)
+    uint32 planes of 16-bit limbs."""
+    w = t.detach().cpu().numpy().view(np.uint32)
+    planes = np.stack([w & np.uint32(0xFFFF), w >> np.uint32(16)], axis=1)
+    return planes.reshape((2 * w.shape[0],) + w.shape[1:])
+
+
+class BigMontField:
+    """Field ops over (n32, *batch) int32 words, Montgomery form."""
+
+    def __init__(self, params: FieldParams, kern: FieldKernels = KERNELS):
+        self.params = params
+        self.p = params.modulus
+        self.n32 = params.n_ref_limbs
+        self.kern = kern
+        self._p_words = int_words(self.p, self.n32)
+
+    # -- ring ops ----------------------------------------------------------------
+    def add(self, x, y):
+        x, y = torch.broadcast_tensors(words64(x), words64(y))
+        rows, carry = carry_words(list(x + y))
+        return reduce_once(rows, carry, self.params)
+
+    def sub(self, x, y):
+        x, y = torch.broadcast_tensors(words64(x), words64(y))
+        d, br = sub_words(list(x), list(y))
+        rows, _ = carry_words([r + w * br for r, w in zip(d, self._p_words)])
+        return words32(torch.stack(rows))
+
+    def neg(self, x):
+        d, _ = sub_words([torch.full_like(w, p) for w, p in
+                          zip(words64(x), self._p_words)], list(words64(x)))
+        return self.select(self.is_zero(x), torch.zeros_like(x),
+                           words32(torch.stack(d)))
+
+    def mul(self, x, y):
+        """Montgomery product x * y * R^-1 (mont_t operator*)."""
+        return self.kern.mul(x, y, self.params)
+
+    def sqr(self, x):
+        return self.kern.sqr(x, self.params)
+
+    def select(self, cond, x, y):
+        """Lane-wise select; `cond` is a bool tensor over the batch shape."""
+        return torch.where(cond, x, y)
+
+    def is_zero(self, x):
+        return (x == 0).all(dim=0)
+
+    def eq(self, x, y):
+        return (x == y).all(dim=0)
+
+    # -- constants ---------------------------------------------------------------
+    def zeros(self, batch_shape, device=None):
+        return torch.zeros((self.n32,) + tuple(batch_shape),
+                           dtype=torch.int32, device=device)
+
+    def _word_const(self, v: int, batch_shape, device):
+        col = words32(torch.tensor(int_words(v, self.n32), dtype=torch.int64,
+                                   device=device))
+        batch_shape = tuple(batch_shape)
+        return col.reshape((self.n32,) + (1,) * len(batch_shape)).expand(
+            (self.n32,) + batch_shape)
+
+    def const(self, value: int, batch_shape=(), device=None):
+        """A canonical int broadcast in Montgomery form (an expanded
+        view)."""
+        return self._word_const(self.params.to_mont(value % self.p),
+                                batch_shape, device)
+
+    def ones(self, batch_shape=(), device=None):
+        return self._word_const(self.params.one_mont, batch_shape, device)
+
+    # -- exponentiation and inversion ----------------------------------------------
+    def pow_const(self, x, e: int):
+        """x^e for a fixed exponent, MSB first (pow_byref, ff/pow.hpp)."""
+        if e == 0:
+            return self.ones(x.shape[1:], x.device).contiguous()
+        acc = x
+        for bit in bin(e)[3:]:
+            acc = self.sqr(acc)
+            if bit == "1":
+                acc = self.mul(acc, x)
+        return acc
+
+    def inv(self, x):
+        """Fermat inversion x^(p-2); 0 -> 0."""
+        return self.pow_const(x, self.p - 2)
+
+    def _scan(self, x, reverse: bool):
+        """Inclusive prefix (suffix, if reverse) products along the last
+        axis, in lg(n) Hillis-Steele steps."""
+        n = x.shape[-1]
+        d = 1
+        while d < n:
+            lo, hi = x[..., :n - d], x[..., d:]
+            if reverse:
+                x = torch.cat([self.mul(lo, hi), x[..., n - d:]], dim=-1)
+            else:
+                x = torch.cat([x[..., :d], self.mul(hi, lo)], dim=-1)
+            d *= 2
+        return x
+
+    def batch_inv(self, x):
+        """Montgomery-trick inversion along the last axis: prefix and suffix
+        products and ONE Fermat inversion; zero lanes give zero
+        (ff/batch_inversion.hpp:18-52)."""
+        zero = self.is_zero(x)
+        one = self.ones(x.shape[1:], x.device)
+        safe = self.select(zero, one, x)
+        pre = self._scan(safe, reverse=False)
+        suf = self._scan(safe, reverse=True)
+        total_inv = self.inv(pre[..., -1:].contiguous())
+        one1 = one[..., :1]
+        pre_shift = torch.cat([one1, pre[..., :-1]], dim=-1)
+        suf_shift = torch.cat([suf[..., 1:], one1], dim=-1)
+        out = self.mul(self.mul(pre_shift, suf_shift), total_inv)
+        return self.select(zero, torch.zeros_like(x), out)
+
+    # -- Montgomery domain ---------------------------------------------------------
+    def to_mont(self, x):
+        return self.mul(x, self._word_const(self.params.RR, x.shape[1:],
+                                            x.device))
+
+    def from_mont(self, x):
+        return self.mul(x, self._word_const(1, x.shape[1:], x.device))
+
+    # -- host conversion -----------------------------------------------------------
+    def from_int_list(self, values: Iterable[int], batch_shape=None,
+                      device=None) -> torch.Tensor:
+        """Canonical ints -> Montgomery words (n32, n), or (n32,
+        *batch_shape)."""
+        wire = [self.params.to_mont(v % self.p) for v in values]
+        arr = np.zeros((self.n32, len(wire)), dtype=np.uint32)
+        for c, v in enumerate(wire):
+            arr[:, c] = int_words(v, self.n32)
+        if batch_shape is not None:
+            arr = arr.reshape((self.n32,) + tuple(batch_shape))
+        return torch.from_numpy(arr.view(np.int32)).to(device)
+
+    def to_int_list(self, t: torch.Tensor) -> List[int]:
+        """Montgomery words -> canonical ints, lanes in flattened order."""
+        flat = t.detach().cpu().numpy().view(np.uint32).reshape(self.n32, -1)
+        out = []
+        for c in range(flat.shape[1]):
+            v = sum(int(flat[i, c]) << (32 * i) for i in range(self.n32))
+            out.append(self.params.from_mont(v))
+        return out
+
+    def from_wire_np(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """Wire (..., n32) little-endian u32 words (the reference's FFI
+        layout) -> (n32, n) words."""
+        a = np.ascontiguousarray(arr, dtype=np.uint32).reshape(-1, self.n32)
+        return torch.from_numpy(np.ascontiguousarray(a.T).view(np.int32)).to(
+            device)
+
+    def to_wire_np(self, t: torch.Tensor) -> np.ndarray:
+        """(n32, ...) words -> (n, n32) wire words."""
+        w = t.detach().cpu().numpy().view(np.uint32).reshape(self.n32, -1)
+        return np.ascontiguousarray(w.T)
+
+
+@functools.lru_cache(maxsize=None)
+def get_field_ops(name_or_params, kern: FieldKernels = KERNELS
+                  ) -> BigMontField:
+    """The cached BigMontField of a field, with the given field kernels."""
+    params = (name_or_params if isinstance(name_or_params, FieldParams)
+              else get_field(name_or_params))
+    return BigMontField(params, kern)

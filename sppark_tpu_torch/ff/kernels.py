@@ -1,0 +1,220 @@
+"""The Montgomery multiply kernel's wrappers, each beside its plain PyTorch
+version.
+
+`mont_mul` and `mont_sqr` run csrc/bigmont.cu:bigmont_ew (the port of
+sppark_tpu/ff/bigmont.py:_ew_call_cached).  On a CUDA tensor a wrapper
+launches the kernel on the current stream or raises; on a CPU tensor it
+computes the same function with the plain version.  Each launch adds one to
+`launches["bigmont_ew"]`.
+
+An element is n32 32-bit words, limb-major `(n32, *batch)`, held as the u32
+bit pattern in an int32 tensor; R = 2^(32 n32), so the Montgomery words
+equal the JAX package's 16-bit-limb words bit for bit.  CPU torch has no
+unsigned 32-bit ops, so the plain versions work on int64: 16-bit limbs for
+the product (the schoolbook and word-by-word Montgomery reduction of
+`BigMontField._mul_xla`, O(n32) tensor steps), and whole 32-bit words in
+[0, 2^32) for the carries and the final subtraction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..params import FieldParams
+from ..util.errors import SpparkError
+
+M16 = 0xFFFF
+M32 = 0xFFFFFFFF
+
+launches = {"bigmont_ew": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# -- word helpers (int64 tensors holding u32 words) ----------------------------
+
+def words64(x: torch.Tensor) -> torch.Tensor:
+    """int32 words -> int64 in [0, 2^32)."""
+    return x.to(torch.int64) & M32
+
+
+def words32(w: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) -> int32 words with the same bit pattern."""
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def int_words(v: int, n32: int):
+    """The n32 little-endian 32-bit words of v, as Python ints."""
+    return [(v >> (32 * i)) & M32 for i in range(n32)]
+
+
+def carry_words(w):
+    """Propagate carries through rows of int64 sums >= 0 -> (words in
+    [0, 2^32) as a list of rows, carry out of the top row)."""
+    out, c = [], 0
+    for row in w:
+        s = row + c
+        out.append(s & M32)
+        c = s >> 32
+    return out, c
+
+
+def sub_words(a, b):
+    """a - b over rows of u32 words (b's rows may be ints) -> (rows, borrow
+    out as 0/1 int64)."""
+    out, br = [], 0
+    for x, y in zip(a, b):
+        d = x - y - br
+        br = (d < 0).to(torch.int64)
+        out.append(d + (br << 32))
+    return out, br
+
+
+def reduce_once(rows, top, params: FieldParams) -> torch.Tensor:
+    """Rows of u32 words (plus the bit `top` above them) holding a value
+    < 2p -> the canonical value as (n32, *batch) int32 words."""
+    d, br = sub_words(rows, int_words(params.modulus, len(rows)))
+    use_d = ((br == 0) | (top != 0))
+    return words32(torch.where(use_d, torch.stack(d), torch.stack(rows)))
+
+
+# -- plain versions --------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _p16(params: FieldParams, device: torch.device) -> torch.Tensor:
+    L = 2 * params.n_ref_limbs
+    return torch.tensor([(params.modulus >> (16 * i)) & M16
+                         for i in range(L)], dtype=torch.int64,
+                        device=device)
+
+
+def _limbs16(w64: torch.Tensor) -> torch.Tensor:
+    """(n32, *b) int64 words -> (2 n32, *b) int64 16-bit limbs."""
+    limbs = torch.stack([w64 & M16, w64 >> 16], dim=1)
+    return limbs.reshape((2 * w64.shape[0],) + tuple(w64.shape[1:]))
+
+
+def mont_mul_plain(x: torch.Tensor, y: torch.Tensor,
+                   params: FieldParams) -> torch.Tensor:
+    """Plain version of bigmont_ew: x * y * R^-1 mod p, canonical."""
+    x, y = torch.broadcast_tensors(x, y)
+    a, b = _limbs16(words64(x)), _limbs16(words64(y))
+    L = a.shape[0]
+    batch = tuple(a.shape[1:])
+    m0 = params.m0(16)
+    p16 = _p16(params, a.device).reshape((L,) + (1,) * len(batch))
+    # schoolbook: column k sums a[i] b[k - i]; each product < 2^32 and a
+    # column of L of them stays far inside int64
+    acc = torch.zeros((2 * L,) + batch, dtype=torch.int64,
+                      device=a.device)
+    for i in range(L):
+        acc[i:i + L] += a[i] * b
+    # word-by-word Montgomery reduction: m clears column i mod 2^16, the
+    # rest of column i carries into column i + 1
+    for i in range(L):
+        m = ((acc[i] & M16) * m0) & M16
+        acc[i:i + L] += m * p16
+        acc[i + 1] += acc[i] >> 16
+    # the upper half holds the result (< 2p) in unnormalised 16-bit columns
+    top = acc[L:]
+    rows, c = carry_words([top[2 * k] + (top[2 * k + 1] << 16)
+                           for k in range(L // 2)])
+    return reduce_once(rows, c, params)
+
+
+def mont_sqr_plain(x: torch.Tensor, params: FieldParams) -> torch.Tensor:
+    """Plain version of bigmont_ew's square."""
+    return mont_mul_plain(x, x, params)
+
+
+# -- kernel --------------------------------------------------------------------
+
+_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {"bigmont_ew": [_I, _I, _VP, _VP, _VP, _LL, _VP, _VP]}
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("bigmont", _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def field_consts(params: FieldParams, a4: int = 0) -> np.ndarray:
+    """The kernels' per-launch constants [p, one, a4, m0] as u32 words:
+    p, the Montgomery one and a4 (Montgomery form) n32 words each, then
+    M0 = -p^-1 mod 2^32."""
+    n32 = params.n_ref_limbs
+    words = (int_words(params.modulus, n32) + int_words(params.one_mont, n32)
+             + int_words(params.to_mont(a4 % params.modulus), n32)
+             + [params.m0(32)])
+    return np.asarray(words, dtype=np.uint32)
+
+
+def check_words(name: str, params: FieldParams, *tensors) -> None:
+    n32 = params.n_ref_limbs
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: tensors must be int32 words")
+        if t.ndim < 1 or t.shape[0] != n32:
+            raise ValueError(f"{name}: {tuple(t.shape)} is not ({n32}, ...) "
+                             f"words of {params.name}")
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: tensors lie on different devices")
+    if tensors[0].device.type != "cuda":
+        raise SpparkError(5, f"{name}: no kernel for device "
+                             f"{tensors[0].device}")
+
+
+def _ew(x: torch.Tensor, y: torch.Tensor, params: FieldParams,
+        sqr: int) -> torch.Tensor:
+    check_words("bigmont_ew", params, x, y)
+    x, y = (t.contiguous() for t in torch.broadcast_tensors(x, y))
+    out = torch.empty_like(x)
+    n = x.numel() // x.shape[0]
+    if n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = _lib().bigmont_ew(
+            x.shape[0], sqr, x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+            field_consts(params).ctypes.data,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise SpparkError(rc, f"bigmont_ew: CUDA error {rc}")
+    launches["bigmont_ew"] += 1
+    return out
+
+
+def mont_mul(x: torch.Tensor, y: torch.Tensor,
+             params: FieldParams) -> torch.Tensor:
+    """x * y * R^-1 mod p lane by lane, batch shapes broadcast."""
+    if x.device.type == "cpu" and y.device.type == "cpu":
+        return mont_mul_plain(x, y, params)
+    return _ew(x, y, params, 0)
+
+
+def mont_sqr(x: torch.Tensor, params: FieldParams) -> torch.Tensor:
+    """x^2 * R^-1 mod p lane by lane."""
+    if x.device.type == "cpu":
+        return mont_sqr_plain(x, params)
+    return _ew(x, x, params, 1)
+
+
+class FieldKernels(NamedTuple):
+    """The two field functions a BigMontField calls."""
+
+    mul: Callable
+    sqr: Callable
+
+
+#: what the entry points use: the kernel on CUDA tensors
+KERNELS = FieldKernels(mont_mul, mont_sqr)
+#: the plain versions on any device, to hold the kernel against
+PLAIN = FieldKernels(mont_mul_plain, mont_sqr_plain)

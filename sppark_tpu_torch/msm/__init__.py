@@ -1,0 +1,8 @@
+"""Pippenger MSM over G1 (msm/ directory analogue): the slab accumulator
+(slab) and the pipeline and entry points (pippenger)."""
+
+from .pippenger import (MSMContext, MSMSlabStages, demont_scalar_words,
+                        mult_pippenger)
+
+__all__ = ["MSMContext", "MSMSlabStages", "demont_scalar_words",
+           "mult_pippenger"]

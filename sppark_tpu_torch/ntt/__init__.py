@@ -48,6 +48,9 @@ def _field_name(field: Union[str, FieldParams]) -> str:
 
 
 def _check_domain(name: str, x: torch.Tensor, lg: int) -> None:
+    if get_field(name).modulus != gl64.P:
+        raise SpparkError(1, f"{name}: the NTT is ported for the Goldilocks "
+                             f"fields only")
     if lg > get_field(name).two_adicity:
         raise SpparkError(1, f"{name}: 2^{lg} exceeds two-adicity")
     if x.shape[-1] != 1 << lg:

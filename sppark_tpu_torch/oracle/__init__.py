@@ -1,3 +1,10 @@
-from . import ntt
+"""Pure-Python reference implementations (the oracle): exact big-int field,
+G1 curve, NTT and MSM math, with no dependency beyond the parameters."""
 
-__all__ = ["ntt"]
+from . import ntt
+from .field import Fr
+from .ec import AffinePoint, JacobianPoint, XyzzPoint, curve_generator
+from .msm import msm_naive, msm_pippenger
+
+__all__ = ["ntt", "Fr", "AffinePoint", "JacobianPoint", "XyzzPoint",
+           "curve_generator", "msm_naive", "msm_pippenger"]

@@ -84,3 +84,111 @@ def test_facade_on_card(dev, lg):
         ints = [int(v) for v in wire]
         assert gl64.to_ints(ntt.base_dev("goldilocks", x, lg)) == \
             oracle.ntt_natural(fp, ints)
+
+
+# -- the MSM kernels -------------------------------------------------------------
+
+def _canon_words(F, n, seed, dev):
+    """(n32, n) random canonical words, edge values 0, 1, p - 1 and
+    R mod p in the first lanes."""
+    from sppark_tpu_torch.ff.kernels import int_words
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(F.n32, n),
+                                             dtype=np.uint64)
+    w = w.astype(np.uint32)
+    w[-1] %= np.uint32(F.p >> (32 * (F.n32 - 1)))
+    for k, v in enumerate([0, 1, F.p - 1, F.params.R % F.p]):
+        w[:, k] = int_words(v, F.n32)
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def _point_cases(curve, n, dev):
+    """xyzz p (ZZ != 1), affine a, xyzz q (a rescaled).  Lanes 0..31 are
+    generic (a warp with no doubling lane); lane 33 doubles, 34 cancels,
+    35 has a and q at infinity, 36 an empty bucket, 37 both, 38 Y == 0."""
+    import random
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.oracle.ec import get_oracle
+
+    o = get_oracle(params.get_curve(curve))
+    ops = get_curve_ops(curve, FK.PLAIN)
+    F = ops.F
+    rng = random.Random(9)
+    pool = [o.random_point(rng) for _ in range(8)]
+    j = [rng.randrange(8) for _ in range(n)]
+    aff = [pool[(j[i] + 1 + rng.randrange(7)) % 8] for i in range(n)]
+    twice = lambda P: o.jacobian_to_affine(                # noqa: E731
+        o.jacobian_dbl(o.to_jacobian(P)))
+    aff[33] = twice(pool[j[33]])
+    aff[34] = o.affine_neg(twice(pool[j[34]]))
+    aff[35] = aff[37] = o.infinity_affine()
+    p = tuple(c.clone() for c in ops.xyzz_dbl(ops.affine_to_xyzz(
+        ops.affine_from_ints([pool[k] for k in j], dev))))
+    for c in p:
+        c[:, 36:38] = 0
+    p[1][:, 38] = 0
+    a = ops.affine_from_ints(aff, dev)
+    lam = F.from_int_list([rng.randrange(1, F.p) for _ in range(n)],
+                          device=dev)
+    l2 = F.sqr(lam)
+    l3 = F.mul(l2, lam)
+    q = ops._sel(ops.affine_is_inf(a), ops.xyzz_infinity((n,), dev),
+                 (F.mul(a[0], l2), F.mul(a[1], l3), l2, l3))
+    return p, a, q
+
+
+MSM_CURVES = ["test_bm64", "pallas", "bls12_381"]
+
+
+@pytest.mark.parametrize("curve", MSM_CURVES)
+def test_mont_kernel_vs_plain(dev, curve):
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+
+    fp = params.get_curve(curve).field
+    F = get_field_ops(fp)
+    x = _canon_words(F, 1000, 1, dev)
+    y = _canon_words(F, 1000, 2, dev).flip(1).contiguous()
+    before = FK.launches["bigmont_ew"]
+    got = FK.mont_mul(x, y, fp), FK.mont_sqr(x, fp)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], FK.mont_mul_plain(x, y, fp))
+    assert torch.equal(got[1], FK.mont_sqr_plain(x, fp))
+    assert FK.launches["bigmont_ew"] == before + 2
+
+
+@pytest.mark.parametrize("curve", MSM_CURVES)
+def test_point_kernels_vs_plain(dev, curve):
+    from sppark_tpu_torch.ec import kernels as EK
+
+    p, a, q = _point_cases(curve, 96, dev)
+    for got, want in ((EK.xyzz_madd(curve, p, a),
+                       EK.xyzz_madd_plain(curve, p, a)),
+                      (EK.xyzz_add(curve, p, q),
+                       EK.xyzz_add_plain(curve, p, q)),
+                      (EK.xyzz_dbl(curve, p), EK.xyzz_dbl_plain(curve, p))):
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+def test_msm_on_card(dev):
+    """test_bm64 MSM 2^10 through the entry point against msm_naive, every
+    MSM kernel launched."""
+    import random
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import mult_pippenger
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.oracle.msm import msm_naive
+
+    cp = params.get_curve("test_bm64")
+    o = get_oracle(cp)
+    rng = random.Random(5)
+    pts = [o.random_point(rng) for _ in range(1 << 10)]
+    pts[5] = pts[4]
+    sc = [rng.randrange(cp.scalar.modulus) for _ in range(1 << 10)]
+    sc[0], sc[1], sc[4], sc[5] = 0, cp.scalar.modulus - 1, 2, 2
+    EK.reset_launches()
+    FK.reset_launches()
+    assert mult_pippenger("test_bm64", pts, sc) == msm_naive(cp, pts, sc)
+    assert all(v > 0 for v in {**EK.launches, **FK.launches}.values())
