@@ -33,11 +33,28 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      share and phases (the stages' record_function ranges) and its device
      time by kernel; times each MSM kernel alone at its main-path shapes,
      beside the plain versions and the bounds;
- 10. prints one JSON line of the kernels, the card's name and power limit,
+ 10. holds the wide NTT kernels (bigmont_ntt_rows, bigmont_ntt_cols,
+     bigmont_ntt_mid) against their plain versions on test_bm64_fr, BN254
+     Fr and BLS12-381 Fr, every option, exactly;
+ 11. drives the wide main path, a BLS12-381 Fr forward NTT of 2^26 through
+     `ntt.base_dev` on device-resident words (bench.py:bench_ntt_wide),
+     with the launch counts set to 0 just before and read just after;
+     checks the intt round trip, three outputs against sum_i x_i w^(ik)
+     evaluated on the card, each of its five kernel launches against the
+     plain versions on slices of its own arrays, the plain facade and the
+     host-array `ntt.ntt` at 2^20, the big-int oracle at small lg (BLS12-381
+     and BN254 Fr) and the 16 configurations at lg 10 and 16;
+ 12. drives the wide LDE 2^24 x 4 (checks: inverse coset round trip, the
+     plain path at 2^16, the oracle at 2^8);
+ 13. times the wide NTT, the LDE and each wide kernel alone at its 2^26
+     shapes, beside the plain versions (on a 2^20-element slice) and the
+     bounds, and reads the peak device memory of one NTT;
+ 14. prints one JSON line of the kernels, the card's name and power limit,
      and last {"ok": true, "device": {...}}.
 Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
 integer operations over the card's INT32 rate (SMs x 64 lanes x the
-maximum SM clock, read from nvidia-smi).
+maximum SM clock, read from nvidia-smi); a wide butterfly counts one
+Montgomery product (4 n32^2) and an add and a sub (2 n32 each).
 Any failed check raises, so the run exits non-zero and prints no last line.
 It exits non-zero at once without a CUDA device or without the package.
 """
@@ -619,6 +636,377 @@ def msm_phases(dev, card, rate):
     return entries
 
 
+# -- wide-field NTT phases (10-13) --------------------------------------------------
+
+WIDE_FIELD, WIDE_LG = "bls12_381_fr", 26     # bench.py:bench_ntt_wide
+WIDE_LDE_LG, WIDE_BLOWUP = 24, 2
+WIDE_KERNEL_FIELDS = ("test_bm64_fr", "bn254_fr", "bls12_381_fr")
+WIDE_ROW_LGS = (1, 6, 11)        # phase 10's row lengths,
+WIDE_COL_LGS = (1, 8, 11)        # column lengths
+WIDE_COL_COUNTS = (8, 1024)      # and column counts
+MAIN_SLICE_COLS = 1 << 11  # columns of the main path's checked slices
+LG_PLAIN_WIDE = 20      # the whole facade on the plain kernels, on the card
+WIDE_ORDER_LGS = (10, 16)  # the 16 configurations: one pass, four-step
+LG_LDE_PLAIN = 16       # the LDE against the plain path
+PLAIN_SLICE = 1 << 20   # elements of the main-path slice the plain versions
+                        # are timed on
+
+
+def wide_words(field, lg, rng, dev):
+    """(n32, 2^lg) random canonical Montgomery words drawn as the wire
+    words of bench.py:bench_ntt_wide (top word reduced below p's)."""
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    from sppark_tpu_torch.params import get_field
+    fp = get_field(field)
+    n32 = fp.n_ref_limbs
+    w = rng.integers(0, 1 << 32, size=(1 << lg, n32),
+                     dtype=np.uint64).astype(np.uint32)
+    w[:, -1] %= np.uint32(fp.modulus >> (32 * (n32 - 1)))
+    return get_field_ops(field).from_wire_np(w, dev)
+
+
+def butterfly_ops(n32):
+    """32-bit integer operations of one wide radix-2 butterfly: one
+    Montgomery product and a modular add and sub (2 n32 each)."""
+    return prod_ops(n32) + 4 * n32
+
+
+def eval_at(F, x, z, dev):
+    """sum_i x_i z^i (canonical int) on the card, independent of the NTT
+    code: the powers of z by doubling with field products, one product per
+    term, then a tree of field adds."""
+    import torch
+    p = F.p
+    pw = F.ones((1,), dev).contiguous()
+    step = z
+    while pw.shape[-1] < x.shape[-1]:
+        pw = torch.cat([pw, F.mul(pw, F.const(step, (1,), dev))], -1)
+        step = step * step % p
+    t = F.mul(x, pw)
+    del pw
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        t = F.add(t[:, :h], t[:, h:])
+    return F.to_int_list(t)[0]
+
+
+def wide_phases(dev, card, rate):
+    """Phases 10-13.  Returns (the kernels' entries of the summary line,
+    the phases' numbers)."""
+    import torch
+    from sppark_tpu_torch import ntt
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    from sppark_tpu_torch.ntt import fused, kernels as K
+    from sppark_tpu_torch.ntt.parameters import get_parameters
+    from sppark_tpu_torch.oracle import ntt as oracle
+    from sppark_tpu_torch.params import get_field
+
+    errs = dict.fromkeys(K.wide_launches, 0)
+
+    def agree(name, pairs, what):
+        """Every (kernel, plain) pair equal, word for word; one line."""
+        torch.cuda.synchronize()
+        for k, (got, want) in enumerate(pairs):
+            e = word_err((got,), (want,))
+            errs[name] = max(errs[name], e)
+            if e:
+                raise RuntimeError(f"check failed: {name} == plain: {what} "
+                                   f"(case {k}, max word error {e})")
+        print(f"ok  {name} == plain: {what} ({len(pairs)} cases)",
+              flush=True)
+
+    rng = np.random.default_rng(11)
+
+    def rand(field, *shape):
+        return rand_canon(get_field_ops(field), int(np.prod(shape)), rng,
+                          dev).reshape((-1,) + shape)
+
+    # -- 10. kernels vs plain: every option, three fields ----------------------
+    for field in WIDE_KERNEL_FIELDS:
+        pm = get_parameters(field, dev)
+        for lg in WIDE_ROW_LGS:
+            tw = pm.power_table(lg, False)
+            pairs = []
+            for shape in ((1, 1 << lg), (16, 1 << lg), (3, 5, 1 << lg)):
+                x, mul = rand(field, *shape), rand(field, *shape)
+                for in_rev in (False, True):
+                    for out_rev in (False, True):
+                        for out_t in (False, True):
+                            for m in ((None,) if out_rev else (None, mul)):
+                                a = (x, tw, lg, m, in_rev, out_rev, out_t)
+                                pairs.append((K.wide_rows(field, *a),
+                                              K.wide_rows_plain(field, *a)))
+            agree("bigmont_ntt_rows", pairs, f"{field} lg {lg}, every "
+                  f"option, outer batch")
+        for lg1 in WIDE_COL_LGS:
+            tw = pm.power_table(lg1, True)
+            pairs, mids = [], []
+            for m_cols in WIDE_COL_COUNTS:
+                for batch in ((), (3,)):
+                    x = rand(field, *batch, 1 << lg1, m_cols)
+                    pairs.append((K.wide_cols(field, x, tw, lg1),
+                                  K.wide_cols_plain(field, x, tw, lg1)))
+                    # A one block wide, and A many blocks wide
+                    for block in (m_cols, 4):
+                        a = rand(field, 1 << lg1, m_cols // block)
+                        b = rand(field, 1 << lg1, block)
+                        mids.append((K.wide_mid(field, x, a, b),
+                                     K.wide_mid_plain(field, x, a, b)))
+            agree("bigmont_ntt_cols", pairs, f"{field} lg1 {lg1}, batch")
+            agree("bigmont_ntt_mid", mids, f"{field} n1 2^{lg1}, A of 1 "
+                  f"and of M/4 blocks, batch")
+
+    # -- 11. main path: BLS12-381 Fr forward NTT 2^26 ---------------------------
+    F = get_field_ops(WIDE_FIELD)
+    fp = get_field(WIDE_FIELD)
+    n32 = fp.n_ref_limbs
+    n = 1 << WIDE_LG
+    main_rng = np.random.default_rng(5)
+    x = wide_words(WIDE_FIELD, WIDE_LG, main_rng, dev)
+    fwd = fused.fused_tables(WIDE_FIELD, WIDE_LG, False, dev)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    FK.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    y = ntt.base_dev(WIDE_FIELD, x, WIDE_LG)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(K.wide_launches)
+    print(f"main path NTT {WIDE_FIELD} 2^{WIDE_LG} launches: {launches}, "
+          f"bigmont_ew {FK.launches['bigmont_ew']} (tables cached); peak "
+          f"device memory {peak:.3f} GiB, of which {resident:.3f} GiB was "
+          f"allocated before the call (the 2 GiB input, tables, caches): "
+          f"the call adds {peak - resident:.3f} GiB  [{card}]", flush=True)
+    check(all(v > 0 for v in launches.values()),
+          f"NTT {WIDE_FIELD} 2^{WIDE_LG} went through the three wide "
+          f"kernels")
+    back = ntt.base_dev(WIDE_FIELD, y, WIDE_LG,
+                        direction=ntt.Direction.inverse)
+    check(torch.equal(back, x), f"intt(ntt(x)) == x at 2^{WIDE_LG}")
+    del back
+    w = fp.root_of_unity(WIDE_LG)
+    for k in (int(v) for v in main_rng.integers(0, n, size=3)):
+        got = F.to_int_list(y[:, k:k + 1])[0]
+        check(got == eval_at(F, x, pow(w, k, fp.modulus), dev),
+              f"NTT 2^{WIDE_LG} output {k} == sum_i x_i w^(ik) on the card")
+
+    # the main path's kernels at its own shapes, on its own arrays: each
+    # kernel on the whole array, its plain version on the first and last
+    # column blocks (or row batches), which are independent of the rest
+    lg1 = fused.split_lg1(WIDE_LG, WIDE_FIELD)
+    lg2 = WIDE_LG - lg1
+    lg21 = fused.split_lg1(lg2, WIDE_FIELD)
+    lg22 = lg2 - lg21
+    tw1, (A1, B1), tw21, (A2, B2), tw22 = fwd
+    a = x.reshape(n32, 1 << lg1, 1 << lg2)
+    c1 = K.wide_cols(WIDE_FIELD, a, tw1, lg1)
+    m1 = K.wide_mid(WIDE_FIELD, c1, A1, B1)
+    w11, blk = MAIN_SLICE_COLS, B1.shape[-1]
+    ends = (slice(0, w11), slice((1 << lg2) - w11, 1 << lg2))
+    agree("bigmont_ntt_cols", [
+        (c1[..., s], K.wide_cols_plain(WIDE_FIELD, a[..., s].contiguous(),
+                                       tw1, lg1)) for s in ends],
+        f"main path 2^{WIDE_LG}, {tuple(a.shape)} lg {lg1}, first and "
+        f"last {w11} columns")
+    agree("bigmont_ntt_mid", [
+        (m1[..., s], K.wide_mid_plain(
+            WIDE_FIELD, c1[..., s].contiguous(),
+            A1[..., s.start // blk:s.stop // blk].contiguous(), B1))
+        for s in ends],
+        f"main path 2^{WIDE_LG}, {tuple(c1.shape)} block {blk}, first and "
+        f"last {w11} columns")
+    del c1
+    c = m1.reshape(n32, 1 << lg1, 1 << lg21, 1 << lg22)
+    c2 = K.wide_cols(WIDE_FIELD, c, tw21, lg21)
+    m2 = K.wide_mid(WIDE_FIELD, c2, A2, B2)
+    r = K.wide_rows(WIDE_FIELD, m2, tw22, lg22, out_t=True)
+    ends = (slice(0, 2), slice((1 << lg1) - 2, 1 << lg1))
+    agree("bigmont_ntt_cols", [
+        (c2[:, s], K.wide_cols_plain(WIDE_FIELD, c[:, s].contiguous(), tw21,
+                                     lg21)) for s in ends],
+        f"main path inner {tuple(c.shape)} lg {lg21}, first and last 2 "
+        f"batches")
+    agree("bigmont_ntt_mid", [
+        (m2[:, s], K.wide_mid_plain(WIDE_FIELD, c2[:, s].contiguous(), A2,
+                                    B2)) for s in ends],
+        f"main path inner {tuple(c2.shape)} block {B2.shape[-1]}, first and "
+        f"last 2 batches")
+    agree("bigmont_ntt_rows", [
+        (r[:, s], K.wide_rows_plain(WIDE_FIELD, m2[:, s].contiguous(), tw22,
+                                    lg22, out_t=True)) for s in ends],
+        f"main path inner {tuple(m2.shape)} lg {lg22} out_t, first and "
+        f"last 2 batches")
+    check(torch.equal(r.reshape(n32, 1 << lg1, 1 << lg2).transpose(-1, -2)
+                      .reshape(n32, n), y),
+          f"the five main-path launches, composed, == NTT 2^{WIDE_LG}")
+    del c, c2, m2, r
+
+    # the facade on the plain kernels at 2^20; the host-array entry point
+    x20 = wide_words(WIDE_FIELD, LG_PLAIN_WIDE, main_rng, dev)
+    t0 = time.perf_counter()
+    y20 = fused.facade(WIDE_FIELD, x20, LG_PLAIN_WIDE, kern=K.PLAIN)
+    torch.cuda.synchronize()
+    check(torch.equal(ntt.base_dev(WIDE_FIELD, x20, LG_PLAIN_WIDE), y20),
+          f"NTT 2^{LG_PLAIN_WIDE} == the plain path on the card "
+          f"({time.perf_counter() - t0:.1f} s)")
+    wire = ntt.ntt(WIDE_FIELD, F.to_wire_np(x20), LG_PLAIN_WIDE)
+    check(torch.equal(F.from_wire_np(wire, dev), y20),
+          f"host-array ntt.ntt 2^{LG_PLAIN_WIDE} (wire {wire.shape} u32) == "
+          f"the plain path")
+    del x20, y20, wire
+    for field in ("bls12_381_fr", "bn254_fr"):
+        G, gp = get_field_ops(field), get_field(field)
+        ints_rng = random.Random(12)
+        for lg in (1, 10, 12):
+            ints = [ints_rng.randrange(gp.modulus) for _ in range(1 << lg)]
+            got = ntt.base_dev(field, G.from_int_list(ints, device=dev), lg)
+            check(G.to_int_list(got) == oracle.ntt_natural(gp, ints),
+                  f"{field} NTT 2^{lg} == big-int oracle")
+            back = ntt.base_dev(field, got, lg,
+                                direction=ntt.Direction.inverse)
+            check(G.to_int_list(back) == ints, f"{field} intt round trip "
+                                               f"2^{lg}")
+    for lg in WIDE_ORDER_LGS:
+        xs = wide_words(WIDE_FIELD, lg, main_rng, dev)
+        for order in ntt.InputOutputOrder:
+            for inverse in (False, True):
+                for coset in (False, True):
+                    got = ntt.base_dev(WIDE_FIELD, xs, lg, order,
+                                       ntt.Direction(int(inverse)),
+                                       ntt.Type(int(coset)))
+                    want = fused.facade(WIDE_FIELD, xs, lg, order.value,
+                                        inverse, coset, kern=K.PLAIN)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"{WIDE_FIELD} 2^{lg} {order.value} "
+                          f"inverse={inverse} coset={coset} == plain path")
+
+    # -- 12. LDE 2^24 x 4 ---------------------------------------------------------
+    lg, lg_ext = WIDE_LDE_LG, WIDE_LDE_LG + WIDE_BLOWUP
+    x24 = wide_words(WIDE_FIELD, lg, main_rng, dev)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    ext = ntt.lde_dev(WIDE_FIELD, x24, lg, WIDE_BLOWUP)
+    torch.cuda.synchronize()
+    lde_launches = dict(K.wide_launches)
+    print(f"main path LDE {WIDE_FIELD} 2^{lg} x{1 << WIDE_BLOWUP} launches: "
+          f"{lde_launches}", flush=True)
+    check(all(v > 0 for v in lde_launches.values()),
+          f"LDE 2^{lg} x{1 << WIDE_BLOWUP} went through the three wide "
+          f"kernels")
+    inv = ntt.base_dev(WIDE_FIELD, ext, lg_ext,
+                       direction=ntt.Direction.inverse,
+                       ntt_type=ntt.Type.coset)
+    check(bool((inv[:, 1 << lg:] == 0).all()),
+          f"LDE: coefficients above 2^{lg} are 0")
+    check(torch.equal(ntt.base_dev(WIDE_FIELD, inv[:, :1 << lg].contiguous(),
+                                   lg), x24),
+          "LDE: inverse coset transform gives back x")
+    del inv, ext
+    xp = wide_words(WIDE_FIELD, LG_LDE_PLAIN, main_rng, dev)
+    check(torch.equal(ntt.lde_dev(WIDE_FIELD, xp, LG_LDE_PLAIN, WIDE_BLOWUP),
+                      fused.lde(WIDE_FIELD, xp, LG_LDE_PLAIN, WIDE_BLOWUP,
+                                kern=K.PLAIN)),
+          f"LDE 2^{LG_LDE_PLAIN} x{1 << WIDE_BLOWUP} == plain path on the "
+          f"card")
+    ints = [random.Random(13).randrange(fp.modulus) for _ in range(1 << 8)]
+    got = ntt.lde_dev(WIDE_FIELD, F.from_int_list(ints, device=dev), 8, 1)
+    check(F.to_int_list(got) == oracle.lde(fp, ints, 1),
+          "LDE 2^8 x2 == big-int oracle")
+
+    # -- 13. times -----------------------------------------------------------------
+    t_ntt = median_ms(lambda: ntt.base_dev(WIDE_FIELD, x, WIDE_LG), reps=5)
+    bfly = (n // 2) * WIDE_LG
+    B, M2 = butterfly_ops(n32), 2 * prod_ops(n32)
+    ntt_bound, ntt_by = bound(
+        2 * 4 * n32 * n, bfly * B + 2 * n * M2, rate)
+    print(f"time NTT {WIDE_FIELD} 2^{WIDE_LG} forward: {t_ntt:.4f} ms "
+          f"(median of 5, CUDA events), {bfly / (t_ntt * 1e-3):.4e} "
+          f"butterflies/s, bound {ntt_bound:.4f} ms by {ntt_by} "
+          f"(butterflies and two mid passes), {ntt_bound / t_ntt:.3f} of "
+          f"bound  [{card}]", flush=True)
+    t_lde = median_ms(lambda: ntt.lde_dev(WIDE_FIELD, x24, lg, WIDE_BLOWUP),
+                      reps=5)
+    bfly_lde = (1 << (lg - 1)) * lg + (1 << (lg_ext - 1)) * lg_ext
+    print(f"time LDE {WIDE_FIELD} 2^{lg} x{1 << WIDE_BLOWUP}: {t_lde:.4f} ms "
+          f"(median of 5), {bfly_lde / (t_lde * 1e-3):.4e} butterflies/s  "
+          f"[{card}]", flush=True)
+    shift = get_parameters(WIDE_FIELD, dev).coset_powers(lg_ext, False)
+    coeffs = ntt.base_dev(WIDE_FIELD, x24, lg,
+                          direction=ntt.Direction.inverse)
+    pad = torch.zeros((n32, (1 << lg_ext) - (1 << lg)), dtype=torch.int32,
+                      device=dev)
+    parts = {
+        f"inverse NTT 2^{lg}": median_ms(lambda: ntt.base_dev(
+            WIDE_FIELD, x24, lg, direction=ntt.Direction.inverse), reps=5),
+        "pad + coset shift (bigmont_ew)": median_ms(
+            lambda: F.mul(torch.cat([coeffs, pad], -1), shift), reps=5),
+        f"forward NTT 2^{lg_ext} (the main path's time)": t_ntt,
+    }
+    print("time LDE parts: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in parts.items()) + f"  [{card}]",
+        flush=True)
+    del coeffs, pad, x24
+
+    # each kernel alone at the forward 2^26 shapes (cols and mid: the top
+    # level's; rows: the inner level's transposed pass), the plain versions
+    # on a 2^20-element slice of the same arrays
+    c1 = K.wide_cols(WIDE_FIELD, a, tw1, lg1)
+    m2 = m1.reshape(n32, 1 << lg1, 1 << lg21, 1 << lg22)
+    cols_slice = a[..., :PLAIN_SLICE >> lg1].contiguous()
+    mid_slice = c1[..., :PLAIN_SLICE >> lg1].contiguous()
+    rows_slice = m2[:, :PLAIN_SLICE >> lg2].contiguous()
+    a_slice = A1[..., :(PLAIN_SLICE >> lg1) // blk].contiguous()
+    word = 4 * n32
+    cases = [
+        ("bigmont_ntt_cols", tuple(a.shape),
+         lambda: K.wide_cols(WIDE_FIELD, a, tw1, lg1),
+         lambda: K.wide_cols_plain(WIDE_FIELD, cols_slice, tw1, lg1),
+         word * (2 * n + tw1.shape[-1]), (n // 2) * lg1 * B),
+        ("bigmont_ntt_mid", tuple(c1.shape),
+         lambda: K.wide_mid(WIDE_FIELD, c1, A1, B1),
+         lambda: K.wide_mid_plain(WIDE_FIELD, mid_slice, a_slice, B1),
+         word * (2 * n + A1[0].numel() + B1[0].numel()), n * M2),
+        ("bigmont_ntt_rows", tuple(m2.shape),
+         lambda: K.wide_rows(WIDE_FIELD, m2, tw22, lg22, out_t=True),
+         lambda: K.wide_rows_plain(WIDE_FIELD, rows_slice, tw22, lg22,
+                                   out_t=True),
+         word * (2 * n + tw22.shape[-1]), (n // 2) * lg22 * B),
+    ]
+    timing = {}
+    for name, shape, kfn, pfn, nbytes, ops in cases:
+        ms = median_ms(kfn, reps=5)
+        pms = median_ms(pfn, reps=1, warmup=0)
+        b, by = bound(nbytes, ops, rate)
+        timing[name] = (ms, pms, b, by)
+        print(f"time {name} at {shape}: {ms:.4f} ms (median of 5; plain "
+              f"{pms:.4f} ms on a {PLAIN_SLICE}-element slice), bound "
+              f"{b:.4f} ms by {by}, {b / ms:.3f} of bound  [{card}]",
+              flush=True)
+    del a, c1, m1, m2, x, y
+
+    numbers = {"wide_ntt_ms": t_ntt, "wide_ntt_bound_ms": ntt_bound,
+               "wide_lde_ms": t_lde, "wide_lde_parts_ms": parts,
+               "wide_ntt_peak_gib": peak, "wide_ntt_resident_gib": resident,
+               "wide_ntt_launches": launches,
+               "wide_lde_launches": lde_launches}
+    replaces = {"bigmont_ntt_rows": "sppark_tpu/ntt/pallas_kernels.py:206",
+                "bigmont_ntt_cols": "sppark_tpu/ntt/pallas_kernels.py:319",
+                "bigmont_ntt_mid": "sppark_tpu/ntt/pallas_kernels.py:389"}
+    entries = []
+    for name, rep in replaces.items():
+        ms, pms, b, by = timing[name]
+        entries.append({"name": name, "route": "cuda",
+                        "source": "sppark_tpu_torch/csrc/ntt_wide.cu",
+                        "replaces": rep,
+                        "launches": launches[name] + lde_launches[name],
+                        "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+                        "bound_ms": b, "bound_by": by, "library_ms": None})
+    return entries, numbers
+
+
 def main():
     import torch
 
@@ -649,11 +1037,11 @@ def main():
         entry = ""
         for line in rec["log"].splitlines():
             m = re.search(r"Compiling entry function '\w*?"
-                          r"((?:ec|ew|rows|cols)_kernel)"
-                          r"(?:I(Li|Lb)(\d+)E(?:Li|Lb)(\d+)E)?", line)
+                          r"((?:ec|ew|rows|cols|mid)_kernel)"
+                          r"(I(?:L[ib]\d+E)+E)?", line)
             if m:
-                entry = m.group(1) + (f"<{m.group(3)},{m.group(4)}>"
-                                      if m.group(3) else "")
+                args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+                entry = m.group(1) + (f"<{','.join(args)}>" if args else "")
             if "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.strip()}")
 
@@ -712,7 +1100,7 @@ def main():
     main_shapes = []
     for lg, inverse in ((LG, False), (LG, True), (LG + LG_BLOWUP, False)):
         tables = fused.fused_tables(FIELD, lg, inverse, dev)
-        lg1 = fused.split_lg1(lg)
+        lg1 = fused.split_lg1(lg, FIELD)
         x = raw_words(1 << lg1, 1 << (lg - lg1))
         same("gl64_ntt_cols", K.ntt_cols(x, tables[0], lg1, tables[1]),
              K.ntt_cols_plain(x, tables[0], lg1, tables[1]),
@@ -725,7 +1113,7 @@ def main():
             main_shapes.append((lg, inverse, x, tables, lg1))
             continue
         lg2 = lg - lg1
-        lg21 = fused.split_lg1(lg2)
+        lg21 = fused.split_lg1(lg2, FIELD)
         xb = raw_words(1 << lg1, 1 << lg21, 1 << (lg2 - lg21))
         same("gl64_ntt_cols", K.ntt_cols(xb, tables[2], lg21, tables[3]),
              K.ntt_cols_plain(xb, tables[2], lg21, tables[3]),
@@ -858,6 +1246,8 @@ def main():
 
     del xm, tables, main_shapes, state, x, y
     msm_entries = msm_phases(dev, card, rate)
+    torch.cuda.empty_cache()
+    wide_entries, wide_numbers = wide_phases(dev, card, rate)
 
     # -- 10. summary -----------------------------------------------------------
     src = "sppark_tpu_torch/csrc/ntt_gl64.cu"
@@ -876,10 +1266,11 @@ def main():
          "max_abs_err": errs["gl64_ntt_cols"], "ms": cols_ms,
          "plain_ms": cols_plain_ms, "bound_ms": cols_bound,
          "bound_by": cols_by, "library_ms": None},
-    ] + msm_entries}
+    ] + msm_entries + wide_entries}
     print(json.dumps({"ntt_ms": t_ntt, "lde_ms": t_lde,
                       "lde_parts_ms": parts, "ntt_launches": ntt_launches,
-                      "lde_launches": lde_launches, "card": card}))
+                      "lde_launches": lde_launches, **wide_numbers,
+                      "card": card}))
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -187,16 +187,18 @@ class BigMontField:
         return out
 
     def from_wire_np(self, arr: np.ndarray, device=None) -> torch.Tensor:
-        """Wire (..., n32) little-endian u32 words (the reference's FFI
-        layout) -> (n32, n) words."""
-        a = np.ascontiguousarray(arr, dtype=np.uint32).reshape(-1, self.n32)
-        return torch.from_numpy(np.ascontiguousarray(a.T).view(np.int32)).to(
-            device)
+        """Wire (*shape, n32) little-endian u32 words (the reference's FFI
+        layout) -> (n32, *shape) words; a flat wire array is (n, n32)."""
+        a = np.asarray(arr, dtype=np.uint32)
+        if a.ndim < 2 or a.shape[-1] != self.n32:
+            a = a.reshape(-1, self.n32)
+        w = np.ascontiguousarray(np.moveaxis(a, -1, 0))
+        return torch.from_numpy(w.view(np.int32)).to(device)
 
     def to_wire_np(self, t: torch.Tensor) -> np.ndarray:
-        """(n32, ...) words -> (n, n32) wire words."""
-        w = t.detach().cpu().numpy().view(np.uint32).reshape(self.n32, -1)
-        return np.ascontiguousarray(w.T)
+        """(n32, *shape) words -> (*shape, n32) wire words."""
+        w = t.detach().cpu().numpy().view(np.uint32)
+        return np.ascontiguousarray(np.moveaxis(w, 0, -1))
 
 
 @functools.lru_cache(maxsize=None)

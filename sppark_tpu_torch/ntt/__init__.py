@@ -4,6 +4,11 @@ array in and out, NTT::Base), `base_dev` (a tensor on its device,
 NTT::Base_dev_ptr), and the LDE family (NTT::LDE_aux, LDE_powers,
 LDE_expand).
 
+Every NTT field of params.py is taken: Goldilocks words are int64 tensors
+(*batch, n) and wire arrays of u64 (ff/gl64.py); the wide fields' words are
+(n32, *batch, n) int32 Montgomery words and their wire arrays (*batch, n,
+n32) u32 (ff/bigmont.py), as the JAX package's wire format.
+
 Host-array entry points take `device=None`, which means the CUDA card: on
 a machine without one they raise unless the caller passes device="cpu".
 The `*_dev` functions run on the device of the tensor they are given.
@@ -18,11 +23,12 @@ import numpy as np
 import torch
 
 from ..ff import gl64
+from ..ff.bigmont import get_field_ops
 from ..params import FieldParams, get_field
 from ..runtime.devices import resolve
 from ..util.errors import SpparkError
 from . import fused
-from .core import bit_reverse, bitrev_indices
+from .core import bit_reverse, bitrev_indices, elem_ops
 from .parameters import get_parameters
 
 
@@ -47,21 +53,47 @@ def _field_name(field: Union[str, FieldParams]) -> str:
     return field.name if isinstance(field, FieldParams) else str(field)
 
 
-def _check_domain(name: str, x: torch.Tensor, lg: int) -> None:
-    if get_field(name).modulus != gl64.P:
-        raise SpparkError(1, f"{name}: the NTT is ported for the Goldilocks "
-                             f"fields only")
-    if lg > get_field(name).two_adicity:
+def _check_field(name: str, lg: int) -> None:
+    """An NTT field, and a domain within its two-adicity (the JAX package's
+    limit; sppark's own MAX_LG_DOMAIN_SIZE, `max_lg_domain`, is lower)."""
+    fp = get_field(name)
+    if not fp.max_lg_domain:
+        raise SpparkError(1, f"{name}: no NTT over this field")
+    if lg > fp.two_adicity:
         raise SpparkError(1, f"{name}: 2^{lg} exceeds two-adicity")
+
+
+def _check_domain(name: str, x: torch.Tensor, lg: int) -> None:
+    _check_field(name, lg)
     if x.shape[-1] != 1 << lg:
         raise ValueError(f"last axis {x.shape[-1]} != 2^{lg}")
+    E = elem_ops(name)
+    n32 = get_field(name).n_ref_limbs
+    if x.dtype != E.dtype or (E.wide and x.shape[0] != n32):
+        want = (f"({n32}, *batch, n) int32 Montgomery words" if E.wide
+                else "int64 Goldilocks words")
+        got = ("int64 Goldilocks words" if x.dtype == torch.int64
+               else f"{x.dtype} {tuple(x.shape)}")
+        raise SpparkError(1, f"{name} takes {want}, not {got}")
+
+
+def _from_wire(name: str, arr: np.ndarray, device) -> torch.Tensor:
+    if elem_ops(name).wide:
+        return get_field_ops(name).from_wire_np(arr, resolve(device))
+    return gl64.from_wire(arr, resolve(device))
+
+
+def _to_wire(name: str, t: torch.Tensor) -> np.ndarray:
+    if elem_ops(name).wide:
+        return get_field_ops(name).to_wire_np(t)
+    return gl64.to_wire(t)
 
 
 def base_dev(field, x: torch.Tensor, lg_domain: int,
              order: InputOutputOrder = InputOutputOrder.NN,
              direction: Direction = Direction.forward,
              ntt_type: Type = Type.standard) -> torch.Tensor:
-    """NTT along the last axis of a tensor of Goldilocks words, on its
+    """NTT along the last axis of a tensor of the field's words, on its
     device (NTT::Base_dev_ptr)."""
     name = _field_name(field)
     _check_domain(name, x, lg_domain)
@@ -76,9 +108,10 @@ def base(field, inout: np.ndarray, lg_domain: int,
          ntt_type: Type = Type.standard, device=None) -> np.ndarray:
     """One-shot host-array NTT (NTT::Base): upload, transform, download,
     in the wire format."""
-    x = gl64.from_wire(inout, resolve(device))
-    return gl64.to_wire(base_dev(field, x, lg_domain, order, direction,
-                                 ntt_type))
+    name = _field_name(field)
+    x = _from_wire(name, inout, device)
+    return _to_wire(name, base_dev(name, x, lg_domain, order, direction,
+                                   ntt_type))
 
 
 def ntt(field, inout, lg_domain, order=InputOutputOrder.NN, device=None):
@@ -107,9 +140,7 @@ def coset_intt(field, inout, lg_domain, order=InputOutputOrder.NN,
 
 def _check_lde(name: str, x: torch.Tensor, lg: int, lg_blowup: int) -> None:
     _check_domain(name, x, lg)
-    if lg + lg_blowup > get_field(name).two_adicity:
-        raise SpparkError(1, f"{name}: extended domain 2^{lg + lg_blowup} "
-                             f"exceeds two-adicity")
+    _check_field(name, lg + lg_blowup)
 
 
 def lde_dev(field, x: torch.Tensor, lg_domain: int,
@@ -130,15 +161,18 @@ def lde_aux_dev(field, x: torch.Tensor, lg_domain: int, lg_blowup: int):
 
 def lde(field, inout: np.ndarray, lg_domain: int, lg_blowup: int,
         device=None) -> np.ndarray:
-    x = gl64.from_wire(inout, resolve(device))
-    return gl64.to_wire(lde_dev(field, x, lg_domain, lg_blowup))
+    name = _field_name(field)
+    x = _from_wire(name, inout, device)
+    return _to_wire(name, lde_dev(name, x, lg_domain, lg_blowup))
 
 
 def lde_powers_dev(field, x: torch.Tensor, lg_domain: int,
                    bitrev: bool = True) -> torch.Tensor:
     """x[i] * g^bitrev(i) (NTT::LDE_powers); natural i with bitrev=False."""
-    pm = get_parameters(_field_name(field), x.device)
-    return gl64.mul(x, pm.coset_powers(lg_domain, False, bitrev=bitrev))
+    name = _field_name(field)
+    table = get_parameters(name, x.device).coset_powers(lg_domain, False,
+                                                        bitrev=bitrev)
+    return fused.domain_mul(elem_ops(name), x, table)
 
 
 def lde_expand_dev(field, x: torch.Tensor, lg_domain: int,
@@ -146,8 +180,8 @@ def lde_expand_dev(field, x: torch.Tensor, lg_domain: int,
     """Spread bit-reversed coefficients into the blown-up bit-reversed
     domain without the coset shift: the value at i lands at i << blowup,
     zeros between (NTT::LDE_expand)."""
-    out = torch.zeros(x.shape[:-1] + (1 << lg_domain, 1 << lg_blowup),
-                      dtype=x.dtype, device=x.device)
+    out = torch.zeros(x.shape + (1 << lg_blowup,), dtype=x.dtype,
+                      device=x.device)
     out[..., 0] = x
     return out.reshape(x.shape[:-1] + (1 << (lg_domain + lg_blowup),))
 

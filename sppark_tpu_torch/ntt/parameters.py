@@ -1,15 +1,21 @@
 """Twiddle tables (sppark ntt/parameters.cuh), built on the device they
-are used on and cached per (field, device, lg, direction).
+are used on and cached per (field, device, lg, direction).  Words are the
+field's own: int64 Goldilocks words, or (n32, ...) Montgomery words of a
+wide field, with the table's axes last.
 
 Layouts, chosen for the CUDA kernels:
   * power table [w^0 .. w^(n/2 - 1)]: both kernels read stage s's j-th
     twiddle at index j << (lg - s), so one compact table serves all stages;
   * middle twiddle matrix T[k1, i2] = w^(k1*i2), shape (N1, N2): the layout
-    of the column pass's output, so the multiply fuses into that pass;
+    of the column pass's output, so the Goldilocks multiply fuses into that
+    pass;
+  * the factored middle twiddles of the wide fields, T[k1, j] =
+    A[k1, j / block] * B[k1, j mod block], A (N1, N2/block) and B (N1,
+    block): O(sqrt n) words where T would be 2 GiB at lg 26;
   * coset powers [g^0 .. g^(N-1)] (or g^-i), optionally bit-reversed.
 
-Tables are built by doubling with plain field muls on the target device,
-~one mul per element.
+Tables are built by doubling with field muls on the target device (the
+bigmont_ew kernel on a card for the wide fields), ~one mul per element.
 """
 
 from __future__ import annotations
@@ -19,23 +25,23 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..ff import gl64
 from ..params import FieldParams, get_field
-from .core import bit_reverse
+from .core import bit_reverse, elem_ops
 
 
-def powers_of(base_int: int, n: int, device=None,
+def powers_of(E, base_int: int, n: int, device=None,
               mul_by: int = 1) -> torch.Tensor:
-    """[c, c*w, c*w^2, ..., c*w^(n-1)] (c = mul_by) by doubling
-    concatenation T_2m = [T_m, T_m * w^m]."""
-    w = base_int % gl64.P
-    acc = gl64.const(mul_by, (1,), device)
+    """[c, c*w, c*w^2, ..., c*w^(n-1)] (c = mul_by) in the element ops E,
+    by doubling concatenation T_2m = [T_m, T_m * w^m]."""
+    p = E.params.modulus
+    w = base_int % p
+    acc = E.const(mul_by, (1,), device)
     k = 0
     while acc.shape[-1] < n:
-        step = gl64.const(pow(w, 1 << k, gl64.P), (1,), device)
-        acc = torch.cat([acc, gl64.mul(acc, step)], -1)
+        step = E.const(pow(w, 1 << k, p), (1,), device)
+        acc = torch.cat([acc, E.mul(acc, step)], -1)
         k += 1
-    return acc[:n].contiguous()
+    return acc[..., :n].contiguous()
 
 
 class NTTParameters:
@@ -45,35 +51,47 @@ class NTTParameters:
     def __init__(self, params: FieldParams, device: torch.device):
         self.params = params
         self.device = device
+        self.E = elem_ops(params.name)
         self._tables: Dict[Tuple, torch.Tensor] = {}
 
     def _root(self, lg_domain: int, inverse: bool) -> int:
         return (self.params.inv_root_of_unity(lg_domain) if inverse
                 else self.params.root_of_unity(lg_domain))
 
+    def _scaled(self, t: torch.Tensor, lg_domain: int) -> torch.Tensor:
+        """t * (1/N), N = 2^lg_domain."""
+        scale = self.E.const(self.domain_size_inverse(lg_domain), (1, 1),
+                             self.device)
+        return self.E.mul(t, scale)
+
     def power_table(self, lg_domain: int, inverse: bool) -> torch.Tensor:
         """[w^0 .. w^(N/2 - 1)] for the primitive 2^lg root w."""
         key = ("pow", inverse, lg_domain)
         if key not in self._tables:
             n = max(1 << (lg_domain - 1), 1) if lg_domain else 1
-            self._tables[key] = powers_of(self._root(lg_domain, inverse), n,
-                                          self.device)
+            self._tables[key] = powers_of(self.E, self._root(lg_domain,
+                                                             inverse),
+                                          n, self.device)
         return self._tables[key]
+
+    def _rows_by_doubling(self, root: int, n2: int, lg1: int):
+        """(2^lg1, n2) matrix of root^(k1*i2): rows [m, 2m) = rows [0, m) *
+        P_m, P_2m = P_m^2."""
+        P = powers_of(self.E, root, n2, self.device)[..., None, :]
+        T = self.E.ones((1, n2), self.device)
+        for _ in range(lg1):
+            T = torch.cat([T, self.E.mul(T, P)], -2)
+            P = self.E.sqr(P)
+        return T.contiguous()
 
     def middle_twiddle_matrix(self, lg_domain: int, inverse: bool,
                               lg1: int) -> torch.Tensor:
         """(N1, N2) four-step twiddles T[k1, i2] = w^(k1*i2), N1 = 2^lg1,
-        N2 = 2^(lg-lg1): rows [m, 2m) = rows [0, m) * P_m, P_2m = P_m^2."""
+        N2 = 2^(lg-lg1)."""
         key = ("mid", inverse, lg_domain, lg1)
         if key not in self._tables:
-            n2 = 1 << (lg_domain - lg1)
-            P = powers_of(self._root(lg_domain, inverse), n2,
-                          self.device)[None, :]
-            T = gl64.ones((1, n2), self.device)
-            for _ in range(lg1):
-                T = torch.cat([T, gl64.mul(T, P)], 0)
-                P = gl64.sqr(P)
-            self._tables[key] = T.contiguous()
+            self._tables[key] = self._rows_by_doubling(
+                self._root(lg_domain, inverse), 1 << (lg_domain - lg1), lg1)
         return self._tables[key]
 
     def scaled_middle_twiddle_matrix(self, lg_domain: int,
@@ -82,10 +100,37 @@ class NTTParameters:
         four-step's scale costs nothing extra this way."""
         key = ("mid_scaled", lg_domain, lg1)
         if key not in self._tables:
-            scale = gl64.const(self.domain_size_inverse(lg_domain), (1, 1),
-                               self.device)
-            self._tables[key] = gl64.mul(
-                self.middle_twiddle_matrix(lg_domain, True, lg1), scale)
+            self._tables[key] = self._scaled(
+                self.middle_twiddle_matrix(lg_domain, True, lg1), lg_domain)
+        return self._tables[key]
+
+    def middle_twiddle_factored(self, lg_domain: int, inverse: bool,
+                                lg1: int, block: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(A, B) with T[k1, j] = w^(k1*j) = A[k1, j / block] *
+        B[k1, j mod block]: A[k1, b] = w^(k1*b*block), (N1, N2/block), and
+        B[k1, t] = w^(k1*t), (N1, block).  Any block dividing N2 gives the
+        same products."""
+        n2 = 1 << (lg_domain - lg1)
+        if n2 % block:
+            raise ValueError(f"block {block} does not divide N2 = {n2}")
+        key = ("midf", inverse, lg_domain, lg1, block)
+        if key not in self._tables:
+            root = self._root(lg_domain, inverse)
+            self._tables[key] = (
+                self._rows_by_doubling(pow(root, block, self.params.modulus),
+                                       n2 // block, lg1),
+                self._rows_by_doubling(root, block, lg1))
+        return self._tables[key]
+
+    def scaled_middle_twiddle_factored(self, lg_domain: int, lg1: int,
+                                       block: int
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The inverse factored pair with 1/N folded into A."""
+        key = ("midf_scaled", lg_domain, lg1, block)
+        if key not in self._tables:
+            A, B = self.middle_twiddle_factored(lg_domain, True, lg1, block)
+            self._tables[key] = (self._scaled(A, lg_domain), B)
         return self._tables[key]
 
     def domain_size_inverse(self, lg_domain: int) -> int:
@@ -102,10 +147,12 @@ class NTTParameters:
                 nat = self.coset_powers(lg_domain, inverse)
                 self._tables[key] = bit_reverse(nat, lg_domain)
             else:
+                p = self.params.modulus
                 g = self.params.generator
                 if inverse:
-                    g = pow(g, gl64.P - 2, gl64.P)
-                self._tables[key] = powers_of(g, 1 << lg_domain, self.device)
+                    g = pow(g, p - 2, p)
+                self._tables[key] = powers_of(self.E, g, 1 << lg_domain,
+                                              self.device)
         return self._tables[key]
 
 

@@ -11,6 +11,10 @@ curve (modulus, multiplicative generator, curve coefficient, cofactor).
     form is Montgomery with R = 2^(32 n), n the reference's count of 32-bit
     limbs (sppark ff/mont_t.cuh: n = ceil(bits / 32), rounded up to even
     from 4 limbs on).
+  * The NTT fields carry `max_lg_domain`, sppark's MAX_LG_DOMAIN_SIZE (28
+    for the SNARK fields); 0 means the field has no NTT.  test_bm64_fr
+    (p = 0x7FFFFFF9 * 2^32 + 1, 63 bits, 2-adicity 32, two 32-bit words)
+    runs the wide NTT at 64-bit cost.
   * The G1 curves y^2 = x^3 + a4 x + b over them, and test_bm64: y^2 =
     x^3 + 3 over the prime 2^64 - 59, supersingular (p = 2 mod 3), so
     #E = p + 1 = 2 * 3 * 7 * 439208192231179799; the 59-bit prime
@@ -35,6 +39,8 @@ class FieldParams:
     #: True if the wire form is Montgomery (mont_t); False for Goldilocks
     #: and for the scalar fields that only ever carry canonical scalars
     montgomery_wire: bool = True
+    #: sppark's largest NTT domain (lg) for the field; 0 = no NTT
+    max_lg_domain: int = 0
 
     @property
     def bits(self) -> int:
@@ -126,6 +132,7 @@ GOLDILOCKS = FieldParams(
     modulus=(1 << 64) - (1 << 32) + 1,
     generator=7,
     montgomery_wire=False,
+    max_lg_domain=32,
 )
 
 GOLDILOCKS_PLONKY2 = dataclasses.replace(
@@ -135,6 +142,7 @@ BN254_FR = FieldParams(
     name="bn254_fr",
     modulus=21888242871839275222246405745257275088548364400416034343698204186575808495617,
     generator=5,
+    max_lg_domain=28,
 )
 
 BN254_FP = FieldParams(
@@ -147,6 +155,7 @@ BLS12_381_FR = FieldParams(
     name="bls12_381_fr",
     modulus=0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
     generator=7,
+    max_lg_domain=28,
 )
 
 BLS12_381_FP = FieldParams(
@@ -155,11 +164,19 @@ BLS12_381_FP = FieldParams(
     generator=2,
 )
 
+BLS12_377_FR = FieldParams(
+    name="bls12_377_fr",
+    modulus=0x12AB655E9A2CA55660B44D1E5C37B00159AA76FED00000010A11800000000001,
+    generator=22,
+    max_lg_domain=28,
+)
+
 PALLAS_P = FieldParams(
     # base field of Pallas, scalar field of Vesta
     name="pallas",
     modulus=0x40000000000000000000000000000000224698FC094CF91B992D30ED00000001,
     generator=5,
+    max_lg_domain=28,
 )
 
 VESTA_Q = FieldParams(
@@ -167,10 +184,13 @@ VESTA_Q = FieldParams(
     name="vesta",
     modulus=0x40000000000000000000000000000000224698FC0994A8DD8C46EB2100000001,
     generator=5,
+    max_lg_domain=28,
 )
 
 TEST_BM64_FP = FieldParams(name="test_bm64_fp", modulus=(1 << 64) - 59,
                            generator=2)
+TEST_BM64_FR = FieldParams(name="test_bm64_fr", modulus=0x7FFFFFF900000001,
+                           generator=3, max_lg_domain=20)
 TEST_BM64_FR_SCALAR = FieldParams(
     name="test_bm64_fr_scalar",
     modulus=439208192231179799,
@@ -188,7 +208,8 @@ TEST_BM64_G1 = CurveParams("test_bm64", TEST_BM64_FP, TEST_BM64_FR_SCALAR,
 
 FIELDS = {f.name: f for f in (
     GOLDILOCKS, GOLDILOCKS_PLONKY2, BN254_FR, BN254_FP, BLS12_381_FR,
-    BLS12_381_FP, PALLAS_P, VESTA_Q, TEST_BM64_FP, TEST_BM64_FR_SCALAR)}
+    BLS12_381_FP, BLS12_377_FR, PALLAS_P, VESTA_Q, TEST_BM64_FP,
+    TEST_BM64_FR, TEST_BM64_FR_SCALAR)}
 
 CURVES = {c.name: c for c in (
     BN254_G1, BLS12_381_G1, PALLAS_G1, VESTA_G1, TEST_BM64_G1)}

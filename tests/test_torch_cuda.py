@@ -86,6 +86,80 @@ def test_facade_on_card(dev, lg):
             oracle.ntt_natural(fp, ints)
 
 
+# -- the wide-field NTT kernels ---------------------------------------------------
+
+WIDE_FIELDS = ["test_bm64_fr", "bn254_fr", "bls12_381_fr"]
+
+
+def _wide_words(field, rng, dev, *shape):
+    """(n32, *shape) random canonical Montgomery words."""
+    fp = params.get_field(field)
+    n32 = fp.n_ref_limbs
+    w = rng.integers(0, 1 << 32, size=(n32,) + shape,
+                     dtype=np.uint64).astype(np.uint32)
+    w[-1] %= np.uint32(fp.modulus >> (32 * (n32 - 1)))
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("field", WIDE_FIELDS)
+def test_wide_rows_kernel_vs_plain(dev, field):
+    rng = np.random.default_rng(3)
+    for lg in (1, 6, 11):
+        tw = get_parameters(field, dev).power_table(lg, False)
+        x = _wide_words(field, rng, dev, 2, 3, 1 << lg)
+        mul = _wide_words(field, rng, dev, 2, 3, 1 << lg)
+        before = K.wide_launches["bigmont_ntt_rows"]
+        for in_rev in (False, True):
+            for out_rev in (False, True):
+                for out_t in (False, True):
+                    for m in ((None,) if out_rev else (None, mul)):
+                        args = (x, tw, lg, m, in_rev, out_rev, out_t)
+                        got = K.wide_rows(field, *args)
+                        torch.cuda.synchronize()
+                        assert torch.equal(
+                            got, K.wide_rows_plain(field, *args)), args[3:]
+        assert K.wide_launches["bigmont_ntt_rows"] == before + 12
+
+
+@pytest.mark.parametrize("field", WIDE_FIELDS)
+def test_wide_cols_and_mid_kernels_vs_plain(dev, field):
+    rng = np.random.default_rng(4)
+    for lg in (1, 8, 11):
+        tw = get_parameters(field, dev).power_table(lg, True)
+        x = _wide_words(field, rng, dev, 3, 1 << lg, 16)
+        a = _wide_words(field, rng, dev, 1 << lg, 4)
+        b = _wide_words(field, rng, dev, 1 << lg, 4)
+        for xx in (x, x[0].contiguous()):
+            got = K.wide_cols(field, xx, tw, lg)
+            torch.cuda.synchronize()
+            assert torch.equal(got, K.wide_cols_plain(field, xx, tw, lg))
+        for xx in (x, x[0]):
+            got = K.wide_mid(field, xx, a, b)
+            torch.cuda.synchronize()
+            assert torch.equal(got, K.wide_mid_plain(field, xx, a, b))
+
+
+def test_wide_facade_on_card(dev):
+    """bls12_381_fr 2^16 through base_dev (the four-step: every wide kernel
+    launched) against the big-int oracle, and the inverse round trip."""
+    import random
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+
+    field, lg = "bls12_381_fr", 16
+    fp, F = params.get_field(field), get_field_ops(field)
+    rng = random.Random(16)
+    ints = [rng.randrange(fp.modulus) for _ in range(1 << lg)]
+    x = F.from_int_list(ints, device=dev)
+    K.reset_launches()
+    y = ntt.base_dev(field, x, lg)
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in K.wide_launches.values())
+    assert F.to_int_list(y) == oracle.ntt_natural(fp, ints)
+    back = ntt.base_dev(field, y, lg, direction=ntt.Direction.inverse)
+    torch.cuda.synchronize()
+    assert torch.equal(back, x)
+
+
 # -- the MSM kernels -------------------------------------------------------------
 
 def _canon_words(F, n, seed, dev):
