@@ -27,7 +27,8 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      checks it against the exact oracle over the whole input (2^11
      distinct points tiled), the chunked invoke, and at 2^10 `msm_naive`
      (zero, r - 1, doubling and cancelling scalars), Montgomery-form
-     scalars and the plain path on the card;
+     scalars and the plain path on the card (4-bit windows: a short
+     integrate);
   8. drives Pasta G1 2^20 the same way (oracle, 2^10 checks);
   9. times both MSMs; profiles one 2^24 invoke for its peak memory, busy
      share and phases (the stages' record_function ranges) and its device
@@ -49,12 +50,32 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
  13. times the wide NTT, the LDE and each wide kernel alone at its 2^26
      shapes, beside the plain versions (on a 2^20-element slice) and the
      bounds, and reads the peak device memory of one NTT;
- 14. prints one JSON line of the kernels, the card's name and power limit,
+ 14. holds the three fp2 point kernels (ec_fp2_xyzz_madd / add / dbl)
+     against their plain versions on test_bm64_g2, BN254, BLS12-381 and
+     BLS12-377 G2 (nonresidues 7, -1, -1, -5), exactly, with the planted
+     lanes of phase 6, point-major slab rows and a warp with no special
+     lane;
+ 15. drives the G2 main path, BLS12-381 G2 2^23 (the reference bench's G2
+     size) through `MSMContext.set_points` + `invoke`, with the launch
+     counts set to 0 just before and read just after: 2^11 base points
+     r_j G (one cofactor-cleared G, seeded uniform r_j) tiled, infinity at
+     index 3, seeded scalar words; checks it against the exact result
+     (sum_j c_j r_j mod r) G over all 2^23 terms, the chunked invoke, and
+     at 2^8 `msm_naive` with planted scalars, Montgomery-form scalars and
+     the plain path on the card; BN254 and BLS12-377 G2 MSMs of 64 points
+     against `msm_naive`;
+ 16. times the G2 MSM, profiles one invoke (peak memory, busy share,
+     phases) and times each fp2 kernel alone at its main-path shapes
+     beside its plain version and its bound, and prints the G2 phases'
+     seconds;
+ 17. prints one JSON line of the kernels, the card's name and power limit,
      and last {"ok": true, "device": {...}}.
 Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
 integer operations over the card's INT32 rate (SMs x 64 lanes x the
 maximum SM clock, read from nvidia-smi); a wide butterfly counts one
-Montgomery product (4 n32^2) and an add and a sub (2 n32 each).
+Montgomery product (4 n32^2) and an add and a sub (2 n32 each); an fp2
+product 3 products and its additions, an fp2 squaring 2 squarings, a
+product and its additions (fp2_ops).
 Any failed check raises, so the run exits non-zero and prints no last line.
 It exits non-zero at once without a CUDA device or without the package.
 """
@@ -87,6 +108,7 @@ MSM_CURVE, MSM_LG = "bls12_381", 24      # BASELINE config 4
 PASTA_CURVE, PASTA_LG = "pallas", 20     # BASELINE config 3
 LG_BASE = 11        # distinct points, tiled (the reference bench protocol)
 LG_SMALL = 10       # the msm_naive and plain-path checks
+PLAIN_WBITS = 4     # the plain path's windows: few buckets, a short integrate
 EC_CURVES = ("test_bm64", "pallas", "bls12_381")
 M32 = 0xFFFFFFFF
 
@@ -214,9 +236,12 @@ def ec_cases(curve, n, dev, seed):
         c[:, 36:38] = 0
     p[1][:, 38] = 0
     a = ops.affine_from_ints(aff, dev)
-    # q: a rescaled by a random lambda: (x l^2, y l^3, l^2, l^3)
-    lam = F.from_int_list([rng.randrange(1, F.p) for _ in range(n)],
-                          device=dev)
+    # q: a rescaled by a random nonzero lambda: (x l^2, y l^3, l^2, l^3)
+    if cp.fp2 is None:
+        lam = [rng.randrange(1, F.p) for _ in range(n)]
+    else:
+        lam = [(rng.randrange(F.p), rng.randrange(1, F.p)) for _ in range(n)]
+    lam = F.from_int_list(lam, device=dev)
     l2 = F.sqr(lam)
     l3 = F.mul(l2, lam)
     q = ops._sel(ops.affine_is_inf(a), ops.xyzz_infinity((n,), dev),
@@ -224,10 +249,11 @@ def ec_cases(curve, n, dev, seed):
     return p, a, q
 
 
-def msm_input(curve, lg, dev):
+def msm_input(curve, lg, dev, base=None):
     """The reference bench protocol (bench.py:287-301, 322-328): 2^11
-    distinct random points tiled to 2^lg with infinity at index 3, seeded
-    numpy scalar words with the top word reduced below the order's."""
+    distinct random points (or the given `base`) tiled to 2^lg with
+    infinity at index 3, seeded numpy scalar words with the top word
+    reduced below the order's."""
     import torch
     from sppark_tpu_torch.ec import get_curve_ops
     from sppark_tpu_torch.oracle.ec import get_oracle
@@ -235,8 +261,9 @@ def msm_input(curve, lg, dev):
 
     cp = get_curve(curve)
     n, nbase = 1 << lg, 1 << LG_BASE
-    rng = random.Random(42)
-    base = [get_oracle(cp).random_point(rng) for _ in range(nbase)]
+    if base is None:
+        rng = random.Random(42)
+        base = [get_oracle(cp).random_point(rng) for _ in range(nbase)]
     bx, by = get_curve_ops(curve).affine_from_ints(base, dev)
     px, py = bx.repeat(1, n // nbase), by.repeat(1, n // nbase)
     px[:, 3] = 0
@@ -250,23 +277,28 @@ def msm_input(curve, lg, dev):
         dev)
 
 
-def tiled_oracle(curve, base, words):
-    """The exact MSM of a tiled input: point i is base[i mod 2^11] (index 3
-    at infinity), so MSM = sum_j (sum_{i = j mod 2^11, i != 3} s_i mod r)
-    B_j.  The class sums run in numpy over u64 words (2^13 terms of < 2^32
-    each cannot overflow)."""
-    from sppark_tpu_torch.oracle.msm import msm_naive
-    from sppark_tpu_torch.params import get_curve
-
-    cp = get_curve(curve)
+def class_sums(nbase, words, order):
+    """The scalar of each distinct point of a tiled input: point i is
+    base[i mod nbase] (index 3 at infinity), so MSM = sum_j c_j B_j with
+    c_j = sum_{i = j mod nbase, i != 3} s_i mod r.  The sums run in numpy
+    over u64 words (2^13 terms of < 2^32 each cannot overflow)."""
     n_words, n = words.shape
-    nbase = len(base)
     sums = words.reshape(n_words, n // nbase, nbase).sum(axis=1,
                                                          dtype=np.uint64)
     cls = [sum(int(sums[w, j]) << (32 * w) for w in range(n_words))
            for j in range(nbase)]
     cls[3] -= sum(int(words[w, 3]) << (32 * w) for w in range(n_words))
-    return msm_naive(cp, base, [c % cp.scalar.modulus for c in cls])
+    return [c % order for c in cls]
+
+
+def tiled_oracle(curve, base, words):
+    """The exact MSM of a tiled input, by msm_naive over the class sums."""
+    from sppark_tpu_torch.oracle.msm import msm_naive
+    from sppark_tpu_torch.params import get_curve
+
+    cp = get_curve(curve)
+    return msm_naive(cp, base, class_sums(len(base), words,
+                                          cp.scalar.modulus))
 
 
 def reset_all():
@@ -276,16 +308,22 @@ def reset_all():
     FK.reset_launches()
 
 
-def read_all():
+def read_all(curve):
+    """The launch counts of the kernels a curve's MSM runs: its degree's
+    point kernels and the Montgomery multiply."""
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
-    return {**EK.launches, **FK.launches}
+    from sppark_tpu_torch.params import get_curve
+    points = EK.launches if get_curve(curve).fp2 is None else \
+        EK.fp2_launches
+    return {**points, **FK.launches}
 
 
-def msm_main(curve, lg, dev, full):
-    """Phases 7/8: the MSM of 2^lg through the entry points, launch counts
-    around it, and its checks.  Returns (ctx, words on the device,
-    launches)."""
+def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL):
+    """Phases 7/8/15: the MSM of 2^lg through the entry points, launch
+    counts around it, and its checks: `exact(words)` is the exact result
+    (default: tiled_oracle over the drawn points), the small checks run at
+    2^lg_small.  Returns (ctx, words on the device, launches)."""
     import torch
     from sppark_tpu_torch.ec import get_curve_ops
     from sppark_tpu_torch.ec import kernels as EK
@@ -299,7 +337,7 @@ def msm_main(curve, lg, dev, full):
     cp = get_curve(curve)
     n = 1 << lg
     t0 = time.perf_counter()
-    base, pts, words, wd = msm_input(curve, lg, dev)
+    base, pts, words, wd = msm_input(curve, lg, dev, base)
     print(f"{curve} 2^{lg}: input made in {time.perf_counter() - t0:.1f} s",
           flush=True)
     ctx = MSMContext(curve, n)
@@ -312,13 +350,13 @@ def msm_main(curve, lg, dev, full):
     reset_all()
     got = ctx.invoke(wd)
     torch.cuda.synchronize()
-    launches = read_all()
+    launches = read_all(curve)
     print(f"main path MSM {curve} 2^{lg} launches: {launches}", flush=True)
     check(all(v > 0 for v in launches.values()),
           f"MSM {curve} 2^{lg} went through madd, add, dbl and the "
           f"Montgomery multiply")
     t0 = time.perf_counter()
-    want = tiled_oracle(curve, base, words)
+    want = exact(words) if exact else tiled_oracle(curve, base, words)
     check(got == want, f"MSM {curve} 2^{lg} == exact oracle over all "
                        f"2^{lg} terms ({time.perf_counter() - t0:.1f} s)")
     if full:
@@ -330,7 +368,7 @@ def msm_main(curve, lg, dev, full):
     # small: msm_naive with planted scalars and points, Montgomery scalars
     o = get_oracle(cp)
     r = cp.scalar.modulus
-    m = 1 << LG_SMALL
+    m = 1 << lg_small
     spts = list(base[:m])
     spts[3] = o.infinity_affine()
     spts[5] = spts[4]                       # doubles in its bucket
@@ -341,24 +379,25 @@ def msm_main(curve, lg, dev, full):
     want_s = msm_naive(cp, spts, sc)
     ctx_s = MSMContext(curve, m)
     check(ctx_s.invoke(sc, points=spts) == want_s,
-          f"MSM {curve} 2^{LG_SMALL} == msm_naive (0, r-1, doubling and "
+          f"MSM {curve} 2^{lg_small} == msm_naive (0, r-1, doubling and "
           f"cancelling terms)")
     mont = scalar_words([cp.scalar.to_mont(s) for s in sc], ctx_s.n_words,
                         dev)
     check(ctx_s.invoke(mont, points=spts, mont=True) == want_s,
-          f"MSM {curve} 2^{LG_SMALL} with Montgomery-form scalars")
+          f"MSM {curve} 2^{lg_small} with Montgomery-form scalars")
     if full:
-        st = MSMSlabStages(curve, ctx_s.wbits, ctx_s.nwins, ctx_s.n_words,
-                           kern=EK.PLAIN)
+        wbits = PLAIN_WBITS
+        nwins = (cp.scalar.bits + wbits - 1) // wbits
+        st = MSMSlabStages(curve, wbits, nwins, ctx_s.n_words, kern=EK.PLAIN)
         F = get_curve_ops(curve, FK.PLAIN).F
         rows = slab.point_rows(F, *get_curve_ops(curve).affine_from_ints(
             spts, dev))
         t0 = time.perf_counter()
         wx, wy = st(scalar_words(sc, ctx_s.n_words, dev), rows)
-        plain = pippenger.collect(cp, ctx_s.wbits, ctx_s.nwins, wx, wy)
-        check(plain == want_s, f"MSM {curve} 2^{LG_SMALL} on the plain path "
-                               f"on the card == msm_naive "
-                               f"({time.perf_counter() - t0:.1f} s)")
+        plain = pippenger.collect(cp, wbits, nwins, wx, wy)
+        check(plain == want_s, f"MSM {curve} 2^{lg_small} on the plain path "
+                               f"on the card, {wbits}-bit windows, == "
+                               f"msm_naive ({time.perf_counter() - t0:.1f} s)")
     return ctx, wd, launches
 
 
@@ -410,9 +449,10 @@ MSM_RANGES = ("msm.schedule", "msm.gather", "msm.madd_rounds", "msm.fold",
 
 def kernel_group(name):
     """A device event's name, the point and field kernels by their op."""
-    m = re.search(r"ec_kernel<\d+, ?(\d)>", name)
+    m = re.search(r"ec_kernel<mont::(Fp2?)<\d+>, ?(\d)>", name)
     if m:
-        return ("ec_xyzz_madd", "ec_xyzz_add", "ec_xyzz_dbl")[int(m.group(1))]
+        return ("ec_fp2_xyzz_" if m.group(1) == "Fp2" else "ec_xyzz_") + \
+            ("madd", "add", "dbl")[int(m.group(2))]
     return "bigmont_ew" if "ew_kernel<" in name else name[:60]
 
 
@@ -455,13 +495,124 @@ def profile_breakdown(prof):
     return busy, {k: tuple(v) for k, v in phases.items()}, by_kernel
 
 
+def point_kernel_cases(curve, ctx, wd, M, S, A):
+    """The three point kernels of `curve` at its main path's shapes, on the
+    main path's data: madd on group 0's accumulators after two rounds and
+    slot 2, add on those accumulators and their right neighbours, dbl on
+    the window sums.  M, S, A: the 32-bit operations of one product,
+    squaring and addition of the coordinate field; only lanes that take
+    the fast leg are counted.  Returns (cases for time_kernels: name,
+    lanes, kernel, plain version, bytes, operations; the window sums)."""
+    import torch
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.msm import slab
+    from sppark_tpu_torch.params import get_curve
+
+    cp = get_curve(curve)
+    st = ctx.stages
+    cap, _, wg = st.plan(wd.shape[1])
+    sv, row_src, row_len = st.schedule(wd)[:3]
+    win = st.window_sums(wd, ctx.rows)
+    g = slice(0, wg)
+    sl = slab.materialize(sv[g], row_src[g], row_len[g], cap, ctx.rows)
+    acc = slab.madd_rounds(curve, sl, 2)
+    W = acc[0].shape[0]
+    a2 = (sl[2][:, :W].T, sl[2][:, W:].T)
+    del sl
+    partner = tuple(torch.roll(c, -1, dims=-1) for c in acc)
+    lanes = acc[0].shape[1]
+    live = lambda c: (c != 0).any(dim=0)                 # noqa: E731
+    madd_full = int((live(acc[2]) & (live(a2[0]) | live(a2[1]))).sum())
+    add_full = int((live(acc[2]) & live(partner[2])).sum())
+    dbl_full = int((live(win[1]) & live(win[2])).sum())
+    # dbl-2008-s-1 needs a4 ZZ^2 only where a4 != 0
+    dbl_a4 = M + S + A if cp.a4 else 0
+    pre = "ec_xyzz_" if cp.fp2 is None else "ec_fp2_xyzz_"
+    cases = [
+        (pre + "madd", lanes, lambda: EK.xyzz_madd(curve, acc, a2),
+         lambda: EK.xyzz_madd_plain(curve, acc, a2),
+         10 * 4 * W * lanes, madd_full * (8 * M + 2 * S + 7 * A)),
+        (pre + "add", lanes, lambda: EK.xyzz_add(curve, acc, partner),
+         lambda: EK.xyzz_add_plain(curve, acc, partner),
+         12 * 4 * W * lanes, add_full * (12 * M + 2 * S + 7 * A)),
+        (pre + "dbl", st.nwins, lambda: EK.xyzz_dbl(curve, win),
+         lambda: EK.xyzz_dbl_plain(curve, win),
+         8 * 4 * W * st.nwins, dbl_full * (6 * M + 3 * S + 7 * A + dbl_a4)),
+    ]
+    return cases, win
+
+
+def time_kernels(cases, same, rate, card):
+    """Each case's kernel against its plain version, then both timed with
+    CUDA events and the kernel set beside its bound.  Returns {name: (ms,
+    plain ms, bound ms, bound by)}."""
+    timing = {}
+    for name, nl, kfn, pfn, nbytes, ops in cases:
+        key = name.split()[0]
+        same(key, kfn(), pfn(), f"{name} at the main-path shape ({nl} "
+                                f"lanes)")
+        ms = kernel_ms(kfn, reps=20)
+        pms = kernel_ms(pfn, reps=1)
+        b, by = bound(nbytes, ops, rate)
+        timing[name] = (ms, pms, b, by)
+        print(f"time {name} at {nl} lanes: {ms:.4f} ms (plain {pms:.4f} ms, "
+              f"bound {b:.4f} ms by {by}, {b / ms:.3f} of bound)  [{card}]",
+              flush=True)
+    return timing
+
+
+def msm_times(ctx, wd, curve, lg, card):
+    """The MSM's time (median of 3 invokes, wall clock), then one invoke
+    under torch.profiler (CUPTI): peak device memory, the device's busy
+    share, the stages' phases and the device time by kernel, printed.
+    Returns (ms, peak GiB, resident GiB, busy ms, profiled wall ms,
+    phases, by kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 1 << lg
+    t_msm = wall_ms(lambda: ctx.invoke(wd), reps=3)
+    print(f"time MSM {curve} 2^{lg}: {t_msm:.4f} ms (median of 3, wall "
+          f"clock), {n / (t_msm * 1e-3):.4e} points/s  [{card}]", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.invoke(wd)
+        torch.cuda.synchronize()
+        t_prof = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, phases, by_kernel = profile_breakdown(prof)
+    print(f"MSM {curve} 2^{lg}: peak device memory {peak:.3f} GiB, of "
+          f"which {resident:.3f} GiB was allocated before the invoke (the "
+          f"gather table, the scalars, earlier phases' caches); "
+          + (f"device busy {busy:.4f} ms of {t_prof:.4f} ms wall under the "
+             f"profiler, idle share {1 - busy / t_prof:.4f}" if busy > 0
+             else "device busy time not measured (no device events)")
+          + f"  [{card}]", flush=True)
+    stats = ctx.stages.schedule(wd)[-1]
+    rounds, max_rows = (int(v) for v in stats.tolist())
+    print(f"MSM {curve} 2^{lg} phases under the profiler (device ms of the "
+          f"kernels launched in each / host ms in it): " + ", ".join(
+              f"{k} {d:.4f} / {h:.4f}" for k, (d, h) in phases.items())
+          + f"; the ranges hold {sum(d for d, _ in phases.values()):.4f} "
+          f"of the {busy:.4f} busy ms; rounds {rounds}, fold levels "
+          f"{max(0, (max_rows - 1).bit_length())}  [{card}]", flush=True)
+    print(f"MSM {curve} 2^{lg} device ms by kernel (launches): "
+          + ", ".join(f"{k} {ms:.4f} ({c})" for k, (ms, c) in sorted(
+              by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
+          + f"  [{card}]", flush=True)
+    return t_msm, peak, resident, busy, t_prof, phases, by_kernel
+
+
 def msm_phases(dev, card, rate):
     """Phases 6-9.  Returns the kernels' entries of the summary line."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
     from sppark_tpu_torch.ff.bigmont import get_field_ops
-    from sppark_tpu_torch.msm import slab
     from sppark_tpu_torch.params import get_curve
 
     errs = {k: 0 for k in ("bigmont_ew", "ec_xyzz_madd", "ec_xyzz_add",
@@ -509,85 +660,25 @@ def msm_phases(dev, card, rate):
     pctx, pwd, plaunches = msm_main(PASTA_CURVE, PASTA_LG, dev, full=False)
 
     # -- 9. times ------------------------------------------------------------------
-    n = 1 << MSM_LG
-    t_msm = wall_ms(lambda: ctx.invoke(wd), reps=3)
-    print(f"time MSM {MSM_CURVE} 2^{MSM_LG}: {t_msm:.4f} ms (median of 3, "
-          f"wall clock), {n / (t_msm * 1e-3):.4e} points/s  [{card}]",
-          flush=True)
-    # peak device memory, the device's busy share and the phase breakdown
-    # over one invoke (torch.profiler, CUPTI)
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ctx.invoke(wd)
-        torch.cuda.synchronize()
-        t_prof = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    busy, phases, by_kernel = profile_breakdown(prof)
-    print(f"MSM {MSM_CURVE} 2^{MSM_LG}: peak device memory {peak:.3f} GiB; "
-          + (f"device busy {busy:.4f} ms of {t_prof:.4f} ms wall under the "
-             f"profiler, idle share {1 - busy / t_prof:.4f}" if busy > 0
-             else "device busy time not measured (no device events)")
-          + f"  [{card}]", flush=True)
-    st = ctx.stages
-    cap, _, wg = st.plan(n)
-    sv, row_src, row_len, _, _, _, stats = st.schedule(wd)
-    rounds, max_rows = (int(v) for v in stats.tolist())
-    print(f"MSM {MSM_CURVE} 2^{MSM_LG} phases under the profiler (device "
-          f"ms of the kernels launched in each / host ms in it): " + ", ".join(
-              f"{k} {d:.4f} / {h:.4f}" for k, (d, h) in phases.items())
-          + f"; the ranges hold {sum(d for d, _ in phases.values()):.4f} "
-          f"of the {busy:.4f} busy ms; rounds {rounds}, fold levels "
-          f"{max(0, (max_rows - 1).bit_length())}  [{card}]", flush=True)
-    print(f"MSM {MSM_CURVE} 2^{MSM_LG} device ms by kernel (launches): "
-          + ", ".join(f"{k} {ms:.4f} ({c})" for k, (ms, c) in sorted(
-              by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
-          + f"  [{card}]", flush=True)
+    t_msm, peak, resident, busy, t_prof, phases, by_kernel = msm_times(
+        ctx, wd, MSM_CURVE, MSM_LG, card)
     t_pasta = wall_ms(lambda: pctx.invoke(pwd), reps=3)
     print(f"time MSM {PASTA_CURVE} 2^{PASTA_LG}: {t_pasta:.4f} ms (median "
           f"of 3, wall clock), {(1 << PASTA_LG) / (t_pasta * 1e-3):.4e} "
           f"points/s  [{card}]", flush=True)
     del pctx, pwd
 
-    # each kernel alone at its main-path shapes, on the main path's data:
-    # madd on group 0's accumulators after two rounds and slot 2, add on
-    # those accumulators and their right neighbours, dbl on the window
-    # sums, mul on the batch inversion's lanes and at 2^20 lanes
+    # each kernel alone at its main-path shapes, on the main path's data;
+    # mul on the batch inversion's lanes and at 2^20 lanes
     cp = get_curve(MSM_CURVE)
     fp = cp.field
     N = fp.n_ref_limbs
-    win = st.window_sums(wd, ctx.rows)
-    g = slice(0, wg)
-    sl = slab.materialize(sv[g], row_src[g], row_len[g], cap, ctx.rows)
-    acc = slab.madd_rounds(MSM_CURVE, sl, 2)
-    pt = sl[2]
-    a2 = (pt[:, :N].T, pt[:, N:].T)
+    cases, win = point_kernel_cases(MSM_CURVE, ctx, wd, prod_ops(N),
+                                    sqr_ops(N), 2 * N)
     F = get_field_ops(fp)
-    partner = tuple(torch.roll(c, -1, dims=-1) for c in acc)
     inv_lanes = torch.cat([win[2], win[3]], dim=-1)
     big = rand_canon(F, 1 << 20, rng, dev)
-    lanes = acc[0].shape[1]
-    live = lambda c: ~F.is_zero(c)                       # noqa: E731
-    madd_full = int((live(acc[2]) & (live(a2[0]) | live(a2[1]))).sum())
-    add_full = int((live(acc[2]) & live(partner[2])).sum())
-    dbl_full = int((live(win[1]) & live(win[2])).sum())
-    M, S, adds = prod_ops(N), sqr_ops(N), 2 * N   # adds: one add or sub
-    # dbl-2008-s-1 needs a4 ZZ^2 only where a4 != 0
-    dbl_a4 = M + S + adds if cp.a4 else 0
-    cases = [
-        ("ec_xyzz_madd", lanes, lambda: EK.xyzz_madd(MSM_CURVE, acc, a2),
-         lambda: EK.xyzz_madd_plain(MSM_CURVE, acc, a2),
-         10 * 4 * N * lanes, madd_full * (8 * M + 2 * S + 7 * adds)),
-        ("ec_xyzz_add", lanes, lambda: EK.xyzz_add(MSM_CURVE, acc, partner),
-         lambda: EK.xyzz_add_plain(MSM_CURVE, acc, partner),
-         12 * 4 * N * lanes, add_full * (12 * M + 2 * S + 7 * adds)),
-        ("ec_xyzz_dbl", st.nwins, lambda: EK.xyzz_dbl(MSM_CURVE, win),
-         lambda: EK.xyzz_dbl_plain(MSM_CURVE, win),
-         8 * 4 * N * st.nwins,
-         dbl_full * (6 * M + 3 * S + 7 * adds + dbl_a4)),
+    cases += [
         ("bigmont_ew", inv_lanes.shape[1],
          lambda: FK.mont_mul(inv_lanes, inv_lanes, fp),
          lambda: FK.mont_mul_plain(inv_lanes, inv_lanes, fp),
@@ -596,23 +687,12 @@ def msm_phases(dev, card, rate):
          lambda: FK.mont_mul_plain(big, big, fp),
          3 * 4 * N << 20, prod_ops(N) << 20),
     ]
-    timing = {}
-    for name, nl, kfn, pfn, nbytes, ops in cases:
-        key = name.split()[0]
-        same(key, kfn(), pfn(), f"{name} at the main-path shape ({nl} "
-                                f"lanes)")
-        ms = kernel_ms(kfn, reps=20)
-        pms = kernel_ms(pfn, reps=1)
-        b, by = bound(nbytes, ops, rate)
-        timing[name] = (ms, pms, b, by)
-        print(f"time {name} at {nl} lanes: {ms:.4f} ms (plain {pms:.4f} ms, "
-              f"bound {b:.4f} ms by {by}, {b / ms:.3f} of bound)  [{card}]",
-              flush=True)
+    timing = time_kernels(cases, same, rate, card)
     print(json.dumps({"msm_ms": {f"{MSM_CURVE} 2^{MSM_LG}": t_msm,
                                  f"{PASTA_CURVE} 2^{PASTA_LG}": t_pasta},
                       "msm_phases_device_host_ms": phases,
                       "msm_kernels_ms_launches": by_kernel,
-                      "msm_peak_gib": peak,
+                      "msm_peak_gib": peak, "msm_resident_gib": resident,
                       "msm_device_busy_ms": busy,
                       "msm_profiled_wall_ms": t_prof,
                       "msm_launches": launches,
@@ -1007,6 +1087,179 @@ def wide_phases(dev, card, rate):
     return entries, numbers
 
 
+# -- G2 MSM phases (14-16) ----------------------------------------------------------
+
+G2_CURVE, G2_LG = "bls12_381_g2", 23   # the reference bench's G2 default
+G2_KERNEL_CURVES = ("test_bm64_g2", "bn254_g2", "bls12_381_g2",
+                    "bls12_377_g2")    # nonresidues 7, -1, -1, -5
+G2_SMALL_CURVES = ("bn254_g2", "bls12_377_g2")
+LG_SMALL_G2 = 8     # msm_naive, Montgomery scalars and the plain path
+G2_TABLE_BITS = 8   # the fixed-base table that draws the base points
+
+
+def fp2_ops(n32, nr):
+    """32-bit integer operations of one fp2 product, squaring and addition
+    over n32-word coefficients, in prod_ops / sqr_ops terms: a product is 3
+    base products and 4 additions plus those of t0 + nr t1 (one for
+    |nr| = 1; for larger |nr| the doublings and additions of |nr| t1, then
+    one), a squaring 2 squarings, a product and 1 addition plus those of
+    nr, an addition 2 base additions."""
+    add, k = 2 * n32, abs(nr)
+    nr_adds = 1 if k == 1 else 1 + bin(k).count("1") + k.bit_length() - 1
+    return (3 * prod_ops(n32) + (4 + nr_adds) * add,
+            2 * sqr_ops(n32) + prod_ops(n32) + (1 + nr_adds) * add, 2 * add)
+
+
+def g2_base(curve, nbase, seed):
+    """(G, [r_j], [r_j G]): nbase uniform points of the prime-order
+    subgroup, drawn as r_j G from one cofactor-cleared point G with seeded
+    uniform r_j, through a fixed-base table of d 2^(8 i) G (one addition
+    per 8 bits of r_j, where a scalar multiplication would double 255
+    times)."""
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.params import get_curve
+
+    cp = get_curve(curve)
+    o = get_oracle(cp)
+    r = cp.scalar.modulus
+    rng = random.Random(seed)
+    G = o.random_point(rng)
+    ks = [rng.randrange(1, r) for _ in range(nbase)]
+    bits = G2_TABLE_BITS
+    table, step = [], o.to_jacobian(G)
+    for _ in range((r.bit_length() + bits - 1) // bits):
+        row = [None, step]
+        for _ in range(2, 1 << bits):
+            row.append(o.jacobian_add(row[-1], step))
+        table.append(row)
+        step = o.jacobian_add(row[-1], step)
+    pts = []
+    for k in ks:
+        acc = o.infinity_jacobian()
+        for i, row in enumerate(table):
+            d = (k >> (bits * i)) & ((1 << bits) - 1)
+            if d:
+                acc = o.jacobian_add(acc, row[d])
+        pts.append(o.jacobian_to_affine(acc))
+    for j in (0, nbase - 1):
+        check(pts[j] == o.jacobian_to_affine(o.scalar_mul(G, ks[j])),
+              f"{curve} base point {j} == r_j G by double-and-add")
+    return G, ks, pts
+
+
+def g2_phases(dev, card, rate):
+    """Phases 14-16.  Returns (the fp2 kernels' entries of the summary
+    line, the phases' numbers, bigmont_ew's launches on the main path)."""
+    import torch
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.msm import MSMContext
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.oracle.msm import msm_naive
+    from sppark_tpu_torch.params import get_curve
+
+    names = tuple(EK.fp2_launches)
+    errs = dict.fromkeys(names, 0)
+    seconds = {}
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        e = word_err(got, want)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"{name} == plain: {what}")
+
+    # -- 14. fp2 kernels vs plain, four curves, planted lanes ----------------
+    t0 = time.perf_counter()
+    for curve in G2_KERNEL_CURVES:
+        p, a, q = ec_cases(curve, 1000, dev, seed=11)
+        same("ec_fp2_xyzz_madd", EK.xyzz_madd(curve, p, a),
+             EK.xyzz_madd_plain(curve, p, a), f"{curve} madd, planted lanes")
+        same("ec_fp2_xyzz_add", EK.xyzz_add(curve, p, q),
+             EK.xyzz_add_plain(curve, p, q), f"{curve} add, planted lanes")
+        same("ec_fp2_xyzz_dbl", EK.xyzz_dbl(curve, p),
+             EK.xyzz_dbl_plain(curve, p), f"{curve} dbl, planted lanes")
+        # the affine points as point-major rows, as the slab gives them
+        rows = torch.cat([a[0], a[1]]).T.contiguous()
+        w = a[0].shape[0]
+        same("ec_fp2_xyzz_madd",
+             EK.xyzz_madd(curve, p, (rows[:, :w].T, rows[:, w:].T)),
+             EK.xyzz_madd_plain(curve, p, a),
+             f"{curve} madd on point-major rows")
+        k = 32      # one warp with no special lane
+        same("ec_fp2_xyzz_madd",
+             EK.xyzz_madd(curve, tuple(c[:, :k] for c in p),
+                          tuple(c[:, :k] for c in a)),
+             EK.xyzz_madd_plain(curve, tuple(c[:, :k] for c in p),
+                                tuple(c[:, :k] for c in a)),
+             f"{curve} madd, one warp with no special lane")
+    seconds["14 kernels vs plain"] = time.perf_counter() - t0
+
+    # -- 15. main path: BLS12-381 G2 2^23 --------------------------------------
+    t0 = time.perf_counter()
+    cp = get_curve(G2_CURVE)
+    o = get_oracle(cp)
+    r = cp.scalar.modulus
+    G, ks, base = g2_base(G2_CURVE, 1 << LG_BASE, seed=42)
+    seconds["15 base points"] = time.perf_counter() - t0
+    print(f"{G2_CURVE}: {len(base)} base points r_j G in "
+          f"{seconds['15 base points']:.1f} s", flush=True)
+
+    def exact(words):
+        """sum_i s_i P_i = (sum_j c_j r_j mod r) G: one multiplication."""
+        k = sum(c * kj for c, kj in zip(class_sums(len(base), words, r), ks))
+        return o.jacobian_to_affine(o.scalar_mul(G, k % r))
+
+    t0 = time.perf_counter()
+    ctx, wd, launches = msm_main(G2_CURVE, G2_LG, dev, full=True, base=base,
+                                 exact=exact, lg_small=LG_SMALL_G2)
+    seconds["15 main path and checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for curve in G2_SMALL_CURVES:
+        scp = get_curve(curve)
+        so = get_oracle(scp)
+        rng = random.Random(8)
+        pool = [so.random_point(rng) for _ in range(8)]
+        pts = [pool[i % 8] for i in range(64)]
+        pts[3] = so.infinity_affine()
+        sr = scp.scalar.modulus
+        sc = [rng.randrange(sr) for _ in range(64)]
+        sc[0], sc[1], sc[4], sc[12] = 0, sr - 1, 9, 9    # 4, 12: doubling
+        check(MSMContext(curve, 64).invoke(sc, points=pts)
+              == msm_naive(scp, pts, sc),
+              f"MSM {curve} 64 == msm_naive (0, r-1, doubling terms)")
+    seconds["15 bn254_g2, bls12_377_g2"] = time.perf_counter() - t0
+
+    # -- 16. times ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    t_msm, peak, resident, busy, t_prof, phases, by_kernel = msm_times(
+        ctx, wd, G2_CURVE, G2_LG, card)
+    N = cp.field.n_ref_limbs
+    cases, _ = point_kernel_cases(G2_CURVE, ctx, wd,
+                                  *fp2_ops(N, cp.fp2.nr_small))
+    timing = time_kernels(cases, same, rate, card)
+    seconds["16 times"] = time.perf_counter() - t0
+    print(f"G2 phases' seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+    numbers = {"g2_msm_ms": t_msm, "g2_phases_device_host_ms": phases,
+               "g2_kernels_ms_launches": by_kernel, "g2_peak_gib": peak,
+               "g2_resident_gib": resident,
+               "g2_device_busy_ms": busy, "g2_profiled_wall_ms": t_prof,
+               "g2_launches": launches, "g2_phase_seconds": seconds}
+    line = {"ec_fp2_xyzz_madd": 387, "ec_fp2_xyzz_add": 224,
+            "ec_fp2_xyzz_dbl": 336}
+    entries = []
+    for name in names:
+        ms, pms, b, by = timing[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"sppark_tpu_torch/csrc/{EK.SOURCES[name]}.cu",
+            "replaces": f"sppark_tpu/ec/pallas_ops.py:{line[name]} "
+                        f"(degree 2)",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
+            "library_ms": None})
+    return entries, numbers, launches["bigmont_ew"]
+
+
 def main():
     import torch
 
@@ -1037,11 +1290,16 @@ def main():
         entry = ""
         for line in rec["log"].splitlines():
             m = re.search(r"Compiling entry function '\w*?"
-                          r"((?:ec|ew|rows|cols|mid)_kernel)"
+                          r"((?:ew|rows|cols|mid)_kernel)"
                           r"(I(?:L[ib]\d+E)+E)?", line)
             if m:
                 args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
                 entry = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            m = re.search(r"ec_kernelIN4mont\d(Fp2?)ILi(\d+)EEELi(\d)E",
+                          line)
+            if m:
+                entry = (f"ec_kernel<{m.group(1)}<{m.group(2)}>,"
+                         f"{('madd', 'add', 'dbl')[int(m.group(3))]}>")
             if "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.strip()}")
 
@@ -1248,8 +1506,13 @@ def main():
     msm_entries = msm_phases(dev, card, rate)
     torch.cuda.empty_cache()
     wide_entries, wide_numbers = wide_phases(dev, card, rate)
+    torch.cuda.empty_cache()
+    g2_entries, g2_numbers, g2_mont = g2_phases(dev, card, rate)
+    for e in msm_entries:
+        if e["name"] == "bigmont_ew":      # the G1 and G2 MSMs' launches
+            e["launches"] += g2_mont
 
-    # -- 10. summary -----------------------------------------------------------
+    # -- 17. summary -----------------------------------------------------------
     src = "sppark_tpu_torch/csrc/ntt_gl64.cu"
     kernels_line = {"kernels": [
         {"name": "gl64_ntt_rows", "route": "cuda", "source": src,
@@ -1266,11 +1529,11 @@ def main():
          "max_abs_err": errs["gl64_ntt_cols"], "ms": cols_ms,
          "plain_ms": cols_plain_ms, "bound_ms": cols_bound,
          "bound_by": cols_by, "library_ms": None},
-    ] + msm_entries + wide_entries}
+    ] + msm_entries + wide_entries + g2_entries}
     print(json.dumps({"ntt_ms": t_ntt, "lde_ms": t_lde,
                       "lde_parts_ms": parts, "ntt_launches": ntt_launches,
                       "lde_launches": lde_launches, **wide_numbers,
-                      "card": card}))
+                      **g2_numbers, "card": card}))
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

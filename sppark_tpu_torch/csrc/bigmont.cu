@@ -62,7 +62,7 @@ void launch(int sqr, const uint32_t* x, const uint32_t* y, uint32_t* out,
 }  // namespace
 
 // out (n32, n) = x * y (sqr = 0) or x^2 (sqr = 1), Montgomery, mod p.
-// consts: the host array [p (n32 words), one (n32), a4 (n32), m0].
+// consts: the host array [p (n32 words), one (n32), a4 (n32), m0, nr].
 extern "C" int bigmont_ew(int n32, int sqr, const void* x, const void* y,
                           void* out, long long n, const void* consts,
                           void* stream) {

@@ -1,12 +1,22 @@
-// Multi-limb Montgomery field arithmetic over N 32-bit limbs, for the
-// kernels of bigmont.cu and ec_xyzz.cu (the role of sppark's
-// ff/mont_t.cuh).
+// Multi-limb Montgomery field arithmetic over N 32-bit limbs, and its
+// quadratic extension, for the kernels of bigmont.cu, ntt_wide.cu,
+// ec_xyzz.cu and ec_fp2_*.cu (the role of sppark's ff/mont_t.cuh and
+// ff/alt_bn128-fp2.hpp).
 //
 // An element is N little-endian 32-bit words, R = 2^(32 N), held in
 // registers.  The field constants (p, M0 = -p^-1 mod 2^32, the Montgomery
-// one, and the curve's a4 in Montgomery form) arrive per launch in a
-// Consts<N> passed by value, so one instantiation per N serves every field
-// of that width: N = 2 (test_bm64), 8 (BN254, Pasta), 12 (BLS12-381).
+// one, the curve's a4 in Montgomery form, and the quadratic nonresidue as
+// a small signed integer) arrive per launch in a Consts<N> passed by
+// value, so one instantiation per N serves every field of that width:
+// N = 2 (test_bm64, test_bm64_g2), 8 (BN254, Pasta), 12 (BLS12-381,
+// BLS12-377).
+//
+// Fp2<N> is c0 + c1 u with u^2 = nr, |nr| < 16 (-1 for BN254 and
+// BLS12-381, -5 for BLS12-377, 7 for test_bm64_g2), as the TPU kernels'
+// degree-2 element (sppark_tpu/ec/pallas_ops.py:_KCtx): mul is Karatsuba
+// over three base products with nr * t1 by additions, sqr two squarings
+// and one product.  The reference spreads the two coefficients over a warp
+// lane pair (ff/alt_bn128-fp2.hpp:25-60); here one thread holds both.
 //
 // Every function takes canonical inputs (< p) and returns canonical output,
 // so the words a kernel stores are the TPU kernels' words exactly.
@@ -45,9 +55,10 @@ struct Consts {
     uint32_t one[N];   // R mod p
     uint32_t a4[N];    // curve coefficient a4, Montgomery form (0: none)
     uint32_t m0;       // -p^-1 mod 2^32
+    int32_t nr;        // fp2 nonresidue u^2, a small signed integer
 };
 
-// Consts from the host array [p (N words), one (N), a4 (N), m0].
+// Consts from the host array [p (N words), one (N), a4 (N), m0, nr].
 template <int N>
 inline Consts<N> make_consts(const uint32_t* h) {
     Consts<N> c;
@@ -57,6 +68,7 @@ inline Consts<N> make_consts(const uint32_t* h) {
         c.a4[i] = h[2 * N + i];
     }
     c.m0 = h[3 * N];
+    c.nr = (int32_t)h[3 * N + 1];
     return c;
 }
 
@@ -234,5 +246,91 @@ MONT_HD Fp<N> sqr(const Fp<N>& a, const Consts<N>& c) {
     }
     return reduce_once<N>(t + N, top, c);
 }
+
+// -- the quadratic extension ---------------------------------------------------
+
+template <int N>
+struct Fp2 {
+    Fp<N> c0, c1;
+};
+
+template <int N>
+MONT_HD bool is_zero(const Fp2<N>& a) {
+    return is_zero(a.c0) && is_zero(a.c1);
+}
+
+template <int N>
+MONT_HD Fp2<N> select(bool c, const Fp2<N>& a, const Fp2<N>& b) {
+    return Fp2<N>{select(c, a.c0, b.c0), select(c, a.c1, b.c1)};
+}
+
+template <int N>
+MONT_HD Fp2<N> add(const Fp2<N>& a, const Fp2<N>& b, const Consts<N>& c) {
+    return Fp2<N>{add(a.c0, b.c0, c), add(a.c1, b.c1, c)};
+}
+
+template <int N>
+MONT_HD Fp2<N> sub(const Fp2<N>& a, const Fp2<N>& b, const Consts<N>& c) {
+    return Fp2<N>{sub(a.c0, b.c0, c), sub(a.c1, b.c1, c)};
+}
+
+// t0 + nr * t1, with |nr| * t1 by doubling and adding.
+template <int N>
+MONT_HD Fp<N> add_nr(const Fp<N>& t0, const Fp<N>& t1, const Consts<N>& c) {
+    int k = c.nr < 0 ? -c.nr : c.nr;
+    Fp<N> m = t1;
+    if (k != 1) {
+        Fp<N> run = t1;
+        m = zero<N>();
+        for (; k; k >>= 1) {
+            if (k & 1) m = add(m, run, c);
+            if (k > 1) run = add(run, run, c);
+        }
+    }
+    return c.nr < 0 ? sub(t0, m, c) : add(t0, m, c);
+}
+
+// Karatsuba: c0 = a0 b0 + nr a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1.
+template <int N>
+MONT_HD Fp2<N> mul(const Fp2<N>& a, const Fp2<N>& b, const Consts<N>& c) {
+    Fp<N> t0 = mul(a.c0, b.c0, c);
+    Fp<N> t1 = mul(a.c1, b.c1, c);
+    Fp<N> m = mul(add(a.c0, a.c1, c), add(b.c0, b.c1, c), c);
+    return Fp2<N>{add_nr(t0, t1, c), sub(sub(m, t0, c), t1, c)};
+}
+
+// c0 = a0^2 + nr a1^2, c1 = 2 a0 a1.
+template <int N>
+MONT_HD Fp2<N> sqr(const Fp2<N>& a, const Consts<N>& c) {
+    Fp<N> t0 = sqr(a.c0, c);
+    Fp<N> t1 = sqr(a.c1, c);
+    Fp<N> m = mul(a.c0, a.c1, c);
+    return Fp2<N>{add_nr(t0, t1, c), add(m, m, c)};
+}
+
+// What generic code (xyzz.cuh) needs of an element type beyond the
+// overloaded ops: its zero, and a base-field constant embedded in it.
+template <class E>
+struct Elem;
+
+template <int N>
+struct Elem<Fp<N>> {
+    static constexpr int BASE = N;
+    static MONT_HD Fp<N> zero() { return mont::zero<N>(); }
+    static MONT_HD Fp<N> embed(const uint32_t* w) {
+        return from_words<N>(w);
+    }
+};
+
+template <int N>
+struct Elem<Fp2<N>> {
+    static constexpr int BASE = N;
+    static MONT_HD Fp2<N> zero() {
+        return Fp2<N>{mont::zero<N>(), mont::zero<N>()};
+    }
+    static MONT_HD Fp2<N> embed(const uint32_t* w) {
+        return Fp2<N>{from_words<N>(w), mont::zero<N>()};
+    }
+};
 
 }  // namespace mont

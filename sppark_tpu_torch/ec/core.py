@@ -1,7 +1,9 @@
-"""G1 point arithmetic over batches of field words: the port of
-sppark_tpu/ec/core.py for degree-1 curves.
+"""G1 and G2 point arithmetic over batches of field words: the port of
+sppark_tpu/ec/core.py.
 
-A point batch is a tuple of coordinates, each `(n32, *batch)` int32 words:
+A point batch is a tuple of coordinates, each `(n32, *batch)` int32 words
+for G1, `(2 n32, *batch)` for G2 (an ff/ext.py:Fp2Field element, c0's
+words then c1's; the ops below run unchanged on either field):
 
   * affine = (x, y)            infinity encoded x == y == 0
                                (ec/affine_t.hpp:31-36)
@@ -25,17 +27,20 @@ import numpy as np
 import torch
 
 from ..ff.bigmont import get_field_ops
+from ..ff.ext import get_fp2_ops
 from ..ff.kernels import KERNELS, FieldKernels
 from ..oracle.ec import AffinePoint
 from ..params import CurveParams, get_curve
 
 
 class CurveOps:
-    """All point operations for one G1 curve, vectorised over a batch."""
+    """All point operations for one curve, vectorised over a batch."""
 
     def __init__(self, curve: CurveParams, kern: FieldKernels = KERNELS):
         self.curve = curve
-        self.F = get_field_ops(curve.field, kern)
+        self.degree = curve.degree
+        self.F = (get_field_ops(curve.field, kern) if curve.fp2 is None
+                  else get_fp2_ops(curve.fp2, kern))
 
     def _sel(self, cond, a, b):
         return tuple(self.F.select(cond, x, y) for x, y in zip(a, b))
@@ -152,9 +157,11 @@ class CurveOps:
 
     # -- host conversion -------------------------------------------------------------
     def affine_from_ints(self, pts: Sequence[AffinePoint], device=None):
-        """Oracle AffinePoints (or (x, y, inf) records) -> (x, y) words."""
-        xs = [0 if getattr(p, "inf", False) else p.x for p in pts]
-        ys = [0 if getattr(p, "inf", False) else p.y for p in pts]
+        """Oracle AffinePoints (or (x, y, inf) records) -> (x, y) words; a
+        G2 coordinate is a (c0, c1) pair of ints."""
+        zero = (0, 0) if self.degree == 2 else 0
+        xs = [zero if getattr(p, "inf", False) else p.x for p in pts]
+        ys = [zero if getattr(p, "inf", False) else p.y for p in pts]
         return (self.F.from_int_list(xs, device=device),
                 self.F.from_int_list(ys, device=device))
 
@@ -162,7 +169,7 @@ class CurveOps:
         return list(zip(self.F.to_int_list(a[0]), self.F.to_int_list(a[1])))
 
     def coord_bytes(self) -> int:
-        return 4 * self.F.n32
+        return 4 * self.F.words
 
     def affine_from_wire(self, x_words=None, y_words=None, buf=None,
                          ffi_affine_sz: int = 0, device=None):
@@ -170,9 +177,10 @@ class CurveOps:
         (msm/pippenger.cuh:379, 501-503) with the Affine_inf_t layout
         (ec/affine_t.hpp:75-122).
 
-        Either (n, n32) u32 word arrays per coordinate, in Montgomery form,
-        or a flat byte `buf` with per-point stride `ffi_affine_sz` holding
-        x || y [|| inf]; points whose inf byte is set become (0, 0)."""
+        Either (n, n32) u32 word arrays per coordinate ((n, 2 n32) for G2,
+        c0 || c1), in Montgomery form, or a flat byte `buf` with per-point
+        stride `ffi_affine_sz` holding x || y [|| inf]; points whose inf
+        byte is set become (0, 0)."""
         if buf is not None:
             raw = np.frombuffer(np.ascontiguousarray(buf), dtype=np.uint8)
             cb = self.coord_bytes()
@@ -192,7 +200,8 @@ class CurveOps:
                 self.F.from_wire_np(y_words, device))
 
     def affine_to_wire(self, a):
-        """(x, y) words -> ((n, n32), (n, n32)) wire word arrays."""
+        """(x, y) words -> ((n, n32), (n, n32)) wire word arrays ((n,
+        2 n32) for G2)."""
         return self.F.to_wire_np(a[0]), self.F.to_wire_np(a[1])
 
 

@@ -6,7 +6,9 @@ An element is n32 = mont_bits / 32 little-endian 32-bit words, limb-major
 lanes sit at adjacent addresses, so a kernel with one thread per lane reads
 coalesced.  R = 2^(32 n32) = 2^(16 L), so the Montgomery words are the JAX
 package's `(L, *batch)` 16-bit-limb planes packed in pairs
-(`from_jax_planes` / `to_jax_planes`).
+(`from_jax_planes` / `to_jax_planes`, which also carry an fp2 element:
+the JAX package's (c0 planes, c1 planes) pair <-> the port's (2 n32, ...)
+words, c0's then c1's, as ff/ext.py:Fp2Field holds them).
 
 `mul` and `sqr` go through the field kernels a field is made with
 (ff/kernels.py: the bigmont_ew kernel on CUDA tensors by default, or the
@@ -28,20 +30,42 @@ from .kernels import (KERNELS, FieldKernels, carry_words, int_words,
                       reduce_once, sub_words, words32, words64)
 
 
-def from_jax_planes(planes: np.ndarray, device=None) -> torch.Tensor:
+def from_jax_planes(planes, device=None) -> torch.Tensor:
     """The JAX package's (L, ...) uint32 planes of 16-bit limbs -> the
-    port's (L/2, ...) int32 words."""
+    port's (L/2, ...) int32 words; a (c0, c1) pair of them (an fp2
+    element) -> (L, ...) words, c0's then c1's."""
+    if isinstance(planes, (tuple, list)):
+        return torch.cat([from_jax_planes(c, device) for c in planes])
     a = np.asarray(planes, dtype=np.uint32)
     w = a[0::2] | (a[1::2] << np.uint32(16))
     return torch.from_numpy(np.ascontiguousarray(w).view(np.int32)).to(device)
 
 
-def to_jax_planes(t: torch.Tensor) -> np.ndarray:
+def to_jax_planes(t: torch.Tensor, degree: int = 1):
     """The port's (n32, ...) int32 words -> the JAX package's (2 n32, ...)
-    uint32 planes of 16-bit limbs."""
+    uint32 planes of 16-bit limbs; with degree 2, (2 n32, ...) fp2 words
+    -> the (c0 planes, c1 planes) pair."""
+    if degree == 2:
+        return tuple(to_jax_planes(c) for c in t.chunk(2))
     w = t.detach().cpu().numpy().view(np.uint32)
     planes = np.stack([w & np.uint32(0xFFFF), w >> np.uint32(16)], axis=1)
     return planes.reshape((2 * w.shape[0],) + w.shape[1:])
+
+
+def wire_to_words(arr: np.ndarray, words: int, device=None) -> torch.Tensor:
+    """Wire (*shape, words) little-endian u32 words (the reference's FFI
+    layout) -> (words, *shape) int32 words; a flat array is (n, words)."""
+    a = np.asarray(arr, dtype=np.uint32)
+    if a.ndim < 2 or a.shape[-1] != words:
+        a = a.reshape(-1, words)
+    w = np.ascontiguousarray(np.moveaxis(a, -1, 0))
+    return torch.from_numpy(w.view(np.int32)).to(device)
+
+
+def words_to_wire(t: torch.Tensor) -> np.ndarray:
+    """(words, *shape) int32 words -> (*shape, words) u32 wire words."""
+    w = t.detach().cpu().numpy().view(np.uint32)
+    return np.ascontiguousarray(np.moveaxis(w, 0, -1))
 
 
 class BigMontField:
@@ -51,6 +75,8 @@ class BigMontField:
         self.params = params
         self.p = params.modulus
         self.n32 = params.n_ref_limbs
+        #: int32 words per element
+        self.words = self.n32
         self.kern = kern
         self._p_words = int_words(self.p, self.n32)
 
@@ -189,16 +215,11 @@ class BigMontField:
     def from_wire_np(self, arr: np.ndarray, device=None) -> torch.Tensor:
         """Wire (*shape, n32) little-endian u32 words (the reference's FFI
         layout) -> (n32, *shape) words; a flat wire array is (n, n32)."""
-        a = np.asarray(arr, dtype=np.uint32)
-        if a.ndim < 2 or a.shape[-1] != self.n32:
-            a = a.reshape(-1, self.n32)
-        w = np.ascontiguousarray(np.moveaxis(a, -1, 0))
-        return torch.from_numpy(w.view(np.int32)).to(device)
+        return wire_to_words(arr, self.n32, device)
 
     def to_wire_np(self, t: torch.Tensor) -> np.ndarray:
         """(n32, *shape) words -> (*shape, n32) wire words."""
-        w = t.detach().cpu().numpy().view(np.uint32)
-        return np.ascontiguousarray(np.moveaxis(w, 0, -1))
+        return words_to_wire(t)
 
 
 @functools.lru_cache(maxsize=None)

@@ -147,25 +147,34 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def field_consts(params: FieldParams, a4: int = 0) -> np.ndarray:
-    """The kernels' per-launch constants [p, one, a4, m0] as u32 words:
+def field_consts(params: FieldParams, a4: int = 0,
+                 nr: int = 0) -> np.ndarray:
+    """The kernels' per-launch constants [p, one, a4, m0, nr] as u32 words:
     p, the Montgomery one and a4 (Montgomery form) n32 words each, then
-    M0 = -p^-1 mod 2^32."""
+    M0 = -p^-1 mod 2^32, then the fp2 nonresidue u^2 as a small signed
+    integer (two's complement; 0 where there is no extension)."""
+    if abs(nr) >= 16:
+        raise ValueError(f"{params.name}: nonresidue {nr} is not small")
     n32 = params.n_ref_limbs
     words = (int_words(params.modulus, n32) + int_words(params.one_mont, n32)
              + int_words(params.to_mont(a4 % params.modulus), n32)
-             + [params.m0(32)])
+             + [params.m0(32), nr & M32])
     return np.asarray(words, dtype=np.uint32)
 
 
-def check_words(name: str, params: FieldParams, *tensors) -> None:
-    n32 = params.n_ref_limbs
+def check_words(name: str, params: FieldParams, *tensors,
+                degree: int = 1) -> None:
+    """Refuse what a kernel cannot take: other than int32 words, (degree *
+    n32, ...) shapes (an fp2 element is c0's n32 words, then c1's), or
+    tensors on different devices or off the card."""
+    words = degree * params.n_ref_limbs
     for t in tensors:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: tensors must be int32 words")
-        if t.ndim < 1 or t.shape[0] != n32:
-            raise ValueError(f"{name}: {tuple(t.shape)} is not ({n32}, ...) "
-                             f"words of {params.name}")
+        if t.ndim < 1 or t.shape[0] != words:
+            raise ValueError(f"{name}: {tuple(t.shape)} is not ({words}, "
+                             f"...) words of {params.name}"
+                             + (f"^{degree}" if degree > 1 else ""))
         if t.device != tensors[0].device:
             raise ValueError(f"{name}: tensors lie on different devices")
     if tensors[0].device.type != "cuda":

@@ -1,5 +1,5 @@
-"""Pippenger MSM over G1 (msm/ directory analogue): the slab accumulator
-(slab) and the pipeline and entry points (pippenger)."""
+"""Pippenger MSM over G1 and G2 (msm/ directory analogue): the slab
+accumulator (slab) and the pipeline and entry points (pippenger)."""
 
 from .pippenger import (MSMContext, MSMSlabStages, demont_scalar_words,
                         mult_pippenger)

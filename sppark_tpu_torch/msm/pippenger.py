@@ -1,5 +1,7 @@
-"""Pippenger multi-scalar multiplication on G1: the port of
+"""Pippenger multi-scalar multiplication on G1 and G2: the port of
 sppark_tpu/msm/pippenger.py's slab pipeline (msm/pippenger.cuh analogue).
+A G2 curve runs the same stages on (2 n32, ...) fp2 coordinates
+(ff/ext.py), its point ops on the fp2 kernels.
 
   * breakdown: signed-digit encoding over (n_words, n) scalar words
     (pippenger.cuh:72-121), with the scalar fold (s > r/2 -> r - s, signs
@@ -137,9 +139,9 @@ class MSMSlabStages:
     def plan(self, n: int):
         """(cap, n_rows, wg): the slab's cap and rows per window, and the
         windows per accumulate call.  A slab slot is one point-major row of
-        2 n32 32-bit words."""
+        two coordinates: 2 n32 32-bit words, 4 n32 for G2."""
         cap, n_rows = slab.plan_slab(n, self.nbuckets)
-        per_win = cap * n_rows * 2 * self.ops.F.n32 * 4
+        per_win = cap * n_rows * 2 * self.ops.F.words * 4
         wg = max(1, min(self.nwins, self.BUDGET // per_win))
         while self.nwins % wg:          # equal groups
             wg -= 1
@@ -152,7 +154,7 @@ class MSMSlabStages:
                                            cap, n_rows)(words)
 
     def accumulate(self, sched, rows):
-        """Bucket sums (n32, nwins, nbuckets) x 4 from the schedule and the
+        """Bucket sums (W, nwins, nbuckets) x 4 from the schedule and the
         gather table (slab.point_rows), one window group at a time."""
         sv, row_src, row_len, row_bucket, row_rank, first_row, stats = sched
         cap, _, wg = self.plan(sv.shape[1])
@@ -171,7 +173,7 @@ class MSMSlabStages:
             return self._integrate(bucket)
 
     def _integrate(self, bucket):
-        """W_w = sum_b b * bucket[w, b] for every window: (n32, nwins) x 4.
+        """W_w = sum_b b * bucket[w, b] for every window: (W, nwins) x 4.
         Buckets split into G groups of C; strip sums T[g] = sum_c
         bucket[g, c] and R[g] = sum_c (c+1) bucket[g, c] run C serial adds
         over (nwins, G) lanes; then W = sum_g R[g] + C sum_{k>=1} SufT[k]
@@ -179,16 +181,16 @@ class MSMSlabStages:
         curve, kern = self.curve_name, self.kern
         nwins, G = self.nwins, min(64, self.nbuckets)
         C = self.nbuckets // G
-        n32 = bucket[0].shape[0]
-        # (n32, nwins, G * C) -> (C, n32, nwins, G), c descending
-        xs = [b.reshape(n32, nwins, G, C).movedim(-1, 0).flip(0)
+        words = bucket[0].shape[0]
+        # (W, nwins, G * C) -> (C, W, nwins, G), c descending
+        xs = [b.reshape(words, nwins, G, C).movedim(-1, 0).flip(0)
               for b in bucket]
         dev = bucket[0].device
         acc = res = self.ops.xyzz_infinity((nwins, G), dev)
         for c in range(C):
             acc = kern.add(curve, acc, tuple(x[c] for x in xs))
             res = kern.add(curve, res, acc)
-        # (n32, nwins, G) -> (G, n32, nwins), g descending
+        # (W, nwins, G) -> (G, W, nwins), g descending
         Ts = [t.movedim(-1, 0).flip(0) for t in acc]
         Rs = [r.movedim(-1, 0).flip(0) for r in res]
         accT = sum_suf = sum_res = self.ops.xyzz_infinity((nwins,), dev)
@@ -214,7 +216,9 @@ class MSMSlabStages:
 
 def collect(curve, wbits: int, nwins: int, wx, wy) -> AffinePoint:
     """Host window merge: MSB-first doubling merge of the per-window affine
-    sums (collect(), pippenger.cuh:667-727) over exact ints."""
+    sums (collect(), pippenger.cuh:667-727) over exact ints.  An empty
+    window is the affine (0, 0) of its degree: both coordinates zero in
+    every coefficient."""
     o = get_oracle(curve)
     pts = get_curve_ops(curve.name).affine_to_ints((wx, wy))
     total = o.infinity_jacobian()
@@ -222,7 +226,7 @@ def collect(curve, wbits: int, nwins: int, wx, wy) -> AffinePoint:
         for _ in range(wbits):
             total = o.jacobian_dbl(total)
         x, y = pts[w]
-        if x or y:
+        if (x, y) != (o.zero, o.zero):
             total = o.jacobian_add(total, o.to_jacobian(AffinePoint(x, y)))
     return o.jacobian_to_affine(total)
 

@@ -27,6 +27,7 @@ from torch.profiler import record_function
 
 from ..ec.kernels import KERNELS, Kernels
 from ..ff.bigmont import BigMontField
+from ..ff.ext import Fp2Field
 
 _IDX_MASK = 0x7FFFFFFF
 
@@ -95,10 +96,11 @@ def make_slab_schedule(breakdown, nbuckets: int, cap: int, n_rows: int):
     return schedule
 
 
-def point_rows(F: BigMontField, px, py):
-    """The slab's gather table (2n + 1, 2 n32) int32: row i is point i
-    (x || y words), row n + i is -point i, row 2n is the zero point
-    (infinity)."""
+def point_rows(F: BigMontField | Fp2Field, px, py):
+    """The slab's gather table (2n + 1, 2 W) int32, W the coordinate's words
+    (n32, or 2 n32 for G2): row i is point i (x || y words, for G2 x0 || x1
+    || y0 || y1 as the JAX package's leaves), row n + i is -point i, row 2n
+    is the zero point (infinity)."""
     rows = torch.cat([torch.cat([px, py]).T, torch.cat([px, F.neg(py)]).T,
                       torch.zeros((1, 2 * px.shape[0]), dtype=px.dtype,
                                   device=px.device)])
@@ -107,7 +109,7 @@ def point_rows(F: BigMontField, px, py):
 
 def materialize(sorted_val, row_src, row_len, cap: int, rows):
     """The slab: ONE gather per window group.  Returns (cap, wg * S,
-    2 n32) int32, slot r of row s holding the r-th point of the row's run,
+    2 W) int32, slot r of row s holding the r-th point of the row's run,
     signed, or the zero point past the run's end."""
     wg, S = row_src.shape
     n = sorted_val.shape[-1]
@@ -124,13 +126,13 @@ def materialize(sorted_val, row_src, row_len, cap: int, rows):
 
 def madd_rounds(curve: str, slab, rounds: int, kern: Kernels = KERNELS):
     """Rounds 0..rounds-1: each row's accumulator += its slot r.  Returns
-    the accumulators, four (n32, wg * S) coordinates."""
-    n32 = slab.shape[-1] // 2
-    acc = (torch.zeros((n32, slab.shape[1]), dtype=torch.int32,
+    the accumulators, four (W, wg * S) coordinates of W words each."""
+    w = slab.shape[-1] // 2
+    acc = (torch.zeros((w, slab.shape[1]), dtype=torch.int32,
                        device=slab.device),) * 4
     for r in range(rounds):
         pt = slab[r]
-        acc = kern.madd(curve, acc, (pt[:, :n32].T, pt[:, n32:].T))
+        acc = kern.madd(curve, acc, (pt[:, :w].T, pt[:, w:].T))
     return acc
 
 
@@ -138,7 +140,7 @@ def fold_replicas(curve: str, acc, row_bucket, row_rank, max_rows: int,
                   kern: Kernels = KERNELS):
     """Pairwise tree over replica rows: at level l, a rank divisible by
     2^(l+1) adds the row 2^l to its right when that row is of the same
-    bucket.  acc: four (n32, wg * S) coordinates; returns (n32, wg, S)."""
+    bucket.  acc: four (W, wg * S) coordinates; returns (W, wg, S)."""
     wg, S = row_bucket.shape
     acc = tuple(c.reshape(c.shape[0], wg, S) for c in acc)
     sh = 1
@@ -153,7 +155,7 @@ def fold_replicas(curve: str, acc, row_bucket, row_rank, max_rows: int,
 
 
 def extract(acc, first_row):
-    """Bucket b's sum from its rank-0 row: four (n32, wg, B)."""
+    """Bucket b's sum from its rank-0 row: four (W, wg, B)."""
     return tuple(torch.gather(c, 2, first_row[None].expand(
         c.shape[0], -1, -1)) for c in acc)
 

@@ -1,10 +1,10 @@
 """Pure-Python reference implementations (the oracle): exact big-int field,
-G1 curve, NTT and MSM math, with no dependency beyond the parameters."""
+G1/G2 curve, NTT and MSM math, with no dependency beyond the parameters."""
 
 from . import ntt
-from .field import Fr
+from .field import Fp2, Fr
 from .ec import AffinePoint, JacobianPoint, XyzzPoint, curve_generator
 from .msm import msm_naive, msm_pippenger
 
-__all__ = ["ntt", "Fr", "AffinePoint", "JacobianPoint", "XyzzPoint",
+__all__ = ["ntt", "Fr", "Fp2", "AffinePoint", "JacobianPoint", "XyzzPoint",
            "curve_generator", "msm_naive", "msm_pippenger"]

@@ -1,7 +1,9 @@
-"""Big-int reference G1 arithmetic (oracle).
+"""Big-int reference G1 and G2 arithmetic (oracle).
 
 The semantics of sppark's ec/affine_t.hpp, ec/jacobian_t.hpp and
-ec/xyzz_t.hpp on Python ints:
+ec/xyzz_t.hpp on Python ints (G1) or (c0, c1) int pairs (G2, over
+oracle.field.Fp2): the same code serves both, through the coordinate
+field's ops:
   - affine infinity encoded as X == Y == 0 (ec/affine_t.hpp:31-36)
   - jacobian infinity Z == 0 (ec/jacobian_t.hpp:16)
   - xyzz infinity ZZ == 0 (ec/xyzz_t.hpp:16)
@@ -13,60 +15,76 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 from ..params import CurveParams
-from .field import Fr
+from .field import Fp2, Fr
+
+Coord = Any     # an int (G1) or a (c0, c1) pair of ints (G2)
 
 
 @dataclass
 class AffinePoint:
-    x: int
-    y: int
+    x: Coord
+    y: Coord
     inf: bool = False
 
 
 @dataclass
 class JacobianPoint:
-    x: int
-    y: int
-    z: int
+    x: Coord
+    y: Coord
+    z: Coord
 
 
 @dataclass
 class XyzzPoint:
-    x: int
-    y: int
-    zz: int
-    zzz: int
+    x: Coord
+    y: Coord
+    zz: Coord
+    zzz: Coord
 
 
 class CurveOracle:
-    """Exact reference implementation for one G1 curve."""
+    """Exact reference implementation for one G1 or G2 curve."""
 
     def __init__(self, curve: CurveParams):
         self.curve = curve
-        self.F = Fr(curve.field)
+        p = curve.field.modulus
+        if curve.fp2 is None:
+            self.F = Fr(curve.field)
+            self.zero, self.one, self.b = 0, 1, curve.b % p
+        else:
+            self.F = Fp2(curve.fp2)
+            self.zero, self.one = (0, 0), (1, 0)
+            self.b = (curve.b % p, curve.b_c1 % p)
+
+    def _is_zero(self, a) -> bool:
+        if self.curve.fp2 is not None:
+            return self.F.is_zero(a)
+        return a % self.F.p == 0
 
     # -- constructors -----------------------------------------------------
     def infinity_affine(self) -> AffinePoint:
-        return AffinePoint(0, 0, True)
+        return AffinePoint(self.zero, self.zero, True)
 
     def infinity_jacobian(self) -> JacobianPoint:
-        return JacobianPoint(0, 0, 0)
+        z = self.zero
+        return JacobianPoint(z, z, z)
 
     def infinity_xyzz(self) -> XyzzPoint:
-        return XyzzPoint(0, 0, 0, 0)
+        z = self.zero
+        return XyzzPoint(z, z, z, z)
 
     # -- conversions -------------------------------------------------------
     def to_jacobian(self, p: AffinePoint) -> JacobianPoint:
         if p.inf:
             return self.infinity_jacobian()
-        return JacobianPoint(p.x, p.y, 1)
+        return JacobianPoint(p.x, p.y, self.one)
 
     def jacobian_to_affine(self, p: JacobianPoint) -> AffinePoint:
         F = self.F
-        if p.z % F.p == 0:
+        if self._is_zero(p.z):
             return self.infinity_affine()
         zi = F.inv(p.z)
         zi2 = F.sqr(zi)
@@ -74,7 +92,7 @@ class CurveOracle:
 
     def xyzz_to_affine(self, p: XyzzPoint) -> AffinePoint:
         F = self.F
-        if p.zz % F.p == 0:
+        if self._is_zero(p.zz):
             return self.infinity_affine()
         return AffinePoint(F.mul(p.x, F.inv(p.zz)), F.mul(p.y, F.inv(p.zzz)),
                            False)
@@ -85,7 +103,7 @@ class CurveOracle:
     # -- jacobian group law -------------------------------------------------
     def jacobian_dbl(self, p: JacobianPoint) -> JacobianPoint:
         F = self.F
-        if p.z % F.p == 0 or p.y % F.p == 0:
+        if self._is_zero(p.z) or self._is_zero(p.y):
             return self.infinity_jacobian()
         # dbl-2009-l with M = 3X^2 + a*Z^4
         A = F.sqr(p.x)
@@ -95,7 +113,7 @@ class CurveOracle:
         D = F.add(D, D)
         E = F.add(F.add(A, A), A)
         if self.curve.a4:
-            E = F.add(E, F.mul(self.curve.a4, F.sqr(F.sqr(p.z))))
+            E = F.add(E, F.mul(F.sqr(F.sqr(p.z)), self.curve.a4))
         X3 = F.sub(F.sqr(E), F.add(D, D))
         C8 = F.add(F.add(C, C), F.add(C, C))
         C8 = F.add(C8, C8)
@@ -106,9 +124,9 @@ class CurveOracle:
     def jacobian_add(self, p: JacobianPoint,
                      q: JacobianPoint) -> JacobianPoint:
         F = self.F
-        if p.z % F.p == 0:
+        if self._is_zero(p.z):
             return q
-        if q.z % F.p == 0:
+        if self._is_zero(q.z):
             return p
         # add-2007-bl (ec/jacobian_t.hpp:236-294)
         Z1Z1 = F.sqr(p.z)
@@ -120,7 +138,7 @@ class CurveOracle:
         if U1 == U2 and S1 == S2:
             return self.jacobian_dbl(p)
         H = F.sub(U2, U1)
-        if H == 0:
+        if self._is_zero(H):
             return self.infinity_jacobian()
         I = F.sqr(F.add(H, H))
         J = F.mul(H, I)
@@ -134,7 +152,7 @@ class CurveOracle:
     # -- xyzz group law ------------------------------------------------------
     def xyzz_dbl(self, p: XyzzPoint) -> XyzzPoint:
         F = self.F
-        if p.zz % F.p == 0 or p.y % F.p == 0:
+        if self._is_zero(p.zz) or self._is_zero(p.y):
             return self.infinity_xyzz()
         # dbl-2008-s-1, M = 3X^2 + a*ZZ^2
         U = F.add(p.y, p.y)
@@ -143,16 +161,16 @@ class CurveOracle:
         S = F.mul(p.x, V)
         M = F.mul(F.sqr(p.x), 3)
         if self.curve.a4:
-            M = F.add(M, F.mul(self.curve.a4, F.sqr(p.zz)))
+            M = F.add(M, F.mul(F.sqr(p.zz), self.curve.a4))
         X3 = F.sub(F.sqr(M), F.add(S, S))
         Y3 = F.sub(F.mul(M, F.sub(S, X3)), F.mul(W, p.y))
         return XyzzPoint(X3, Y3, F.mul(V, p.zz), F.mul(W, p.zzz))
 
     def xyzz_add(self, p: XyzzPoint, q: XyzzPoint) -> XyzzPoint:
         F = self.F
-        if p.zz % F.p == 0:
+        if self._is_zero(p.zz):
             return q
-        if q.zz % F.p == 0:
+        if self._is_zero(q.zz):
             return p
         # add-2008-s (ec/xyzz_t.hpp:117-201)
         U1 = F.mul(p.x, q.zz)
@@ -161,8 +179,9 @@ class CurveOracle:
         S2 = F.mul(q.y, p.zzz)
         P = F.sub(U2, U1)
         R = F.sub(S2, S1)
-        if P == 0:
-            return self.xyzz_dbl(p) if R == 0 else self.infinity_xyzz()
+        if self._is_zero(P):
+            return self.xyzz_dbl(p) if self._is_zero(R) \
+                else self.infinity_xyzz()
         PP = F.sqr(P)
         PPP = F.mul(P, PP)
         Q = F.mul(U1, PP)
@@ -178,14 +197,15 @@ class CurveOracle:
         F = self.F
         if a.inf:
             return p
-        if p.zz % F.p == 0:
-            return XyzzPoint(a.x, a.y, 1, 1)
+        if self._is_zero(p.zz):
+            return XyzzPoint(a.x, a.y, self.one, self.one)
         U2 = F.mul(a.x, p.zz)
         S2 = F.mul(a.y, p.zzz)
         P = F.sub(U2, p.x)
         R = F.sub(S2, p.y)
-        if P == 0:
-            return self.xyzz_dbl(p) if R == 0 else self.infinity_xyzz()
+        if self._is_zero(P):
+            return self.xyzz_dbl(p) if self._is_zero(R) \
+                else self.infinity_xyzz()
         PP = F.sqr(P)
         PPP = F.mul(P, PP)
         Q = F.mul(p.x, PP)
@@ -215,20 +235,36 @@ class CurveOracle:
 
     # -- point sampling ---------------------------------------------------------
     def random_point(self, rng: random.Random) -> AffinePoint:
-        """A random point of the prime-order subgroup (cofactor cleared)."""
+        """A random point of the prime-order subgroup (cofactor cleared).
+        It draws from `rng` as the JAX package's oracle does, so one seed
+        gives both packages the same points."""
         p = self.curve.field.modulus
-        while True:
-            x = rng.randrange(p)
-            y = _sqrt_mod((x * x * x + self.curve.a4 * x + self.curve.b) % p,
-                          p)
-            if y is not None:
-                if rng.randrange(2):
-                    y = (-y) % p
-                break
-        raw = AffinePoint(x, y, False)
+        if self.curve.fp2 is not None:
+            raw = self._random_fp2_point(rng)
+        else:
+            while True:
+                x = rng.randrange(p)
+                y = _sqrt_mod((x * x * x + self.curve.a4 * x + self.curve.b)
+                              % p, p)
+                if y is not None:
+                    if rng.randrange(2):
+                        y = (-y) % p
+                    break
+            raw = AffinePoint(x, y, False)
         if self.curve.cofactor == 1:
             return raw
         return self.jacobian_to_affine(self._int_mul(raw, self.curve.cofactor))
+
+    def _random_fp2_point(self, rng: random.Random) -> AffinePoint:
+        """A point of E(F_p^2) from a random x whose x^3 + b is a square."""
+        F = self.F
+        p = self.curve.field.modulus
+        for _ in range(10000):
+            x = (rng.randrange(p), rng.randrange(p))
+            y = _sqrt_fp2(F.add(F.mul(F.sqr(x), x), self.b), p, F.nr)
+            if y is not None:
+                return AffinePoint(x, y, False)
+        raise RuntimeError(f"{self.curve.name}: no point found")
 
 
 def _sqrt_mod(a: int, p: int) -> Optional[int]:
@@ -257,6 +293,25 @@ def _sqrt_mod(a: int, p: int) -> Optional[int]:
         m, c = i, b * b % p
         t, r = t * c % p, r * b % p
     return r
+
+
+def _sqrt_fp2(a, p: int, nr: int):
+    """A square root in F_p[u]/(u^2 - nr) through the norm, or None."""
+    c0, c1 = a[0] % p, a[1] % p
+    if c0 == 0 and c1 == 0:
+        return (0, 0)
+    alpha = _sqrt_mod((c0 * c0 - nr * c1 * c1) % p, p)
+    if alpha is None:
+        return None
+    inv2 = pow(2, -1, p)
+    for sign in (1, -1):
+        x0 = _sqrt_mod((c0 + sign * alpha) % p * inv2 % p, p)
+        if x0 is None or x0 == 0:
+            continue
+        x1 = c1 * inv2 % p * pow(x0, -1, p) % p
+        if ((x0 * x0 + nr * x1 * x1) % p, 2 * x0 * x1 % p) == (c0, c1):
+            return (x0, x1)
+    return None
 
 
 _ORACLES: dict = {}

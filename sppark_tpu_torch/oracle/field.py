@@ -1,10 +1,10 @@
 """Big-int reference field arithmetic: the exact math the tensors and
 kernels are held against.  Values are plain Python ints in canonical
-(non-Montgomery) form."""
+(non-Montgomery) form; an Fp2 element is a (c0, c1) pair of them."""
 
 from __future__ import annotations
 
-from ..params import FieldParams
+from ..params import FieldParams, Fp2Params
 
 
 class Fr:
@@ -34,3 +34,44 @@ class Fr:
         if a % self.p == 0:
             return 0
         return pow(a, -1, self.p)
+
+
+class Fp2:
+    """F_p[u]/(u^2 - nonresidue) on (c0, c1) int pairs, c0 + c1 u."""
+
+    def __init__(self, params: Fp2Params):
+        self.params = params
+        self.p = params.base.modulus
+        self.nr = params.nonresidue % self.p
+
+    def add(self, a, b):
+        return ((a[0] + b[0]) % self.p, (a[1] + b[1]) % self.p)
+
+    def sub(self, a, b):
+        return ((a[0] - b[0]) % self.p, (a[1] - b[1]) % self.p)
+
+    def neg(self, a):
+        return ((-a[0]) % self.p, (-a[1]) % self.p)
+
+    def mul(self, a, b):
+        """(a0 + a1 u)(b0 + b1 u) = a0 b0 + nr a1 b1 + (a0 b1 + a1 b0) u;
+        a plain int multiplies both coefficients."""
+        if isinstance(b, int):
+            return (a[0] * b % self.p, a[1] * b % self.p)
+        c0 = (a[0] * b[0] + self.nr * a[1] * b[1]) % self.p
+        c1 = (a[0] * b[1] + a[1] * b[0]) % self.p
+        return (c0, c1)
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def inv(self, a):
+        """1 / (a0 + a1 u) = (a0 - a1 u) / (a0^2 - nr a1^2); 0 -> 0."""
+        norm = (a[0] * a[0] - self.nr * a[1] * a[1]) % self.p
+        if norm == 0:
+            return (0, 0)
+        ninv = pow(norm, -1, self.p)
+        return (a[0] * ninv % self.p, (-a[1]) * ninv % self.p)
+
+    def is_zero(self, a) -> bool:
+        return a[0] % self.p == 0 and a[1] % self.p == 0

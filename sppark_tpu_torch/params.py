@@ -1,4 +1,5 @@
-"""Field and curve parameters for the fields and G1 curves the port supports.
+"""Field and curve parameters for the fields and G1/G2 curves the port
+supports.
 
 Every constant is derived from the published definition of the field or
 curve (modulus, multiplicative generator, curve coefficient, cofactor).
@@ -20,12 +21,21 @@ curve (modulus, multiplicative generator, curve coefficient, cofactor).
     #E = p + 1 = 2 * 3 * 7 * 439208192231179799; the 59-bit prime
     subgroup is its scalar group.  It keeps MSM tests on the CPU cheap
     (two 32-bit words per coordinate) while being a real prime-order group.
+  * The G2 curves y^2 = x^3 + b over F_p^2 = F_p[u]/(u^2 - nr), b = b +
+    b_c1 u: BLS12-381 (nr = -1, b = 4 + 4u), BN254 (nr = -1, b = 3 /
+    (9 + u)), BLS12-377 (nr = -5, b = 1/u), and test_bm64_g2: y^2 = x^3 + 2
+    with nr = 7 over the Goldilocks prime taken as a two-word Montgomery
+    field (goldilocks_bm), so its G2 runs the fp2 kernels at N = 2.  Its j = 0 curve has trace t = 2^32 + 1 over F_p (4p =
+    L^2 + 27 M^2, L = 2^32 + 1, Deuring), so #E(F_p^2) = (p + 1 - t)(p + 1 +
+    t) with p + 1 + t = 467443687 * 39463029637; the 36-bit prime is its
+    scalar group, and its coordinates are genuinely quadratic.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,10 +124,30 @@ class FieldParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class Fp2Params:
+    """Quadratic extension F_p[u]/(u^2 - nonresidue) of `base`."""
+
+    name: str
+    base: FieldParams
+    #: u^2 = nonresidue (mod p): -1 for BN254 and BLS12-381, -5 for
+    #: BLS12-377, 7 for the test tower
+    nonresidue: int
+
+    @property
+    def nr_small(self) -> int:
+        """The nonresidue as a small signed integer (its representative of
+        least absolute value)."""
+        p = self.base.modulus
+        nr = self.nonresidue % p
+        return nr if nr <= p // 2 else nr - p
+
+
+@dataclasses.dataclass(frozen=True)
 class CurveParams:
-    """Short Weierstrass G1 curve y^2 = x^3 + a4*x + b over `field`, with
-    scalar field `scalar`; `cofactor` = #E / r is multiplied in when test
-    points are sampled, so they lie in the subgroup the scalars act on."""
+    """Short Weierstrass curve y^2 = x^3 + a4*x + b over `field` (over its
+    quadratic extension `fp2` for G2, where b = b + b_c1 u), with scalar
+    field `scalar`; `cofactor` = #E / r is multiplied in when test points
+    are sampled, so they lie in the subgroup the scalars act on."""
 
     name: str
     field: FieldParams
@@ -125,6 +155,13 @@ class CurveParams:
     b: int
     a4: int = 0
     cofactor: int = 1
+    fp2: Optional[Fp2Params] = None
+    b_c1: int = 0
+
+    @property
+    def degree(self) -> int:
+        """Coefficients per coordinate: 1 for G1, 2 for G2."""
+        return 1 if self.fp2 is None else 2
 
 
 GOLDILOCKS = FieldParams(
@@ -206,13 +243,57 @@ VESTA_G1 = CurveParams("vesta", VESTA_Q, PALLAS_P, b=5)
 TEST_BM64_G1 = CurveParams("test_bm64", TEST_BM64_FP, TEST_BM64_FR_SCALAR,
                            b=3, cofactor=42)
 
+BLS12_377_FP = FieldParams(
+    name="bls12_377_fp",
+    modulus=0x1AE3A4617C510EAC63B05C06CA1493B1A22D9F300F5138F1EF3622FBA094800170B5D44300000008508C00000000001,
+    generator=15,
+)
+# the Goldilocks prime as a two-word Montgomery field (the test tower's base)
+GOLDILOCKS_BM = FieldParams(name="goldilocks_bm",
+                            modulus=(1 << 64) - (1 << 32) + 1, generator=7)
+TEST_GL64_G2_FR = FieldParams(
+    name="test_gl64_g2_fr",
+    modulus=39463029637,
+    generator=2,
+    montgomery_wire=False,
+)
+
+BN254_FP2 = Fp2Params("bn254_fp2", BN254_FP, BN254_FP.modulus - 1)
+BLS12_381_FP2 = Fp2Params("bls12_381_fp2", BLS12_381_FP,
+                          BLS12_381_FP.modulus - 1)
+BLS12_377_FP2 = Fp2Params("bls12_377_fp2", BLS12_377_FP,
+                          BLS12_377_FP.modulus - 5)
+TEST_BM64_FP2 = Fp2Params("test_bm64_fp2", GOLDILOCKS_BM, 7)
+
+TEST_BM64_G2 = CurveParams(
+    "test_bm64_g2", GOLDILOCKS_BM, TEST_GL64_G2_FR, b=2, fp2=TEST_BM64_FP2,
+    cofactor=18446744065119617025 * 467443687)
+BLS12_381_G2 = CurveParams(
+    "bls12_381_g2", BLS12_381_FP, BLS12_381_FR, b=4, b_c1=4,
+    fp2=BLS12_381_FP2,
+    cofactor=0x5D543A95414E7F1091D50792876A202CD91DE4547085ABAA68A205B2E5A7DDFA628F1CB4D9E82EF21537E293A6691AE1616EC6E786F0C70CF1C38E31C7238E5)
+# b = 3 / (9 + u) = 3 (9 - u) / 82 with u^2 = -1
+_BN_P = BN254_FP.modulus
+_BN_82_INV = pow(82, -1, _BN_P)
+BN254_G2 = CurveParams(
+    "bn254_g2", BN254_FP, BN254_FR, b=27 * _BN_82_INV % _BN_P,
+    b_c1=-3 * _BN_82_INV % _BN_P, fp2=BN254_FP2,
+    cofactor=21888242871839275222246405745257275088844257914179612981679871602714643921549)
+# b = 1 / u
+BLS12_377_G2 = CurveParams(
+    "bls12_377_g2", BLS12_377_FP, BLS12_377_FR, b=0,
+    b_c1=155198655607781456406391640216936120121836107652948796323930557600032281009004493664981332883744016074664192874906,
+    fp2=BLS12_377_FP2,
+    cofactor=0x26BA558AE9562ADDD88D99A6F6A829FBB36B00E1DCC40C8C505634FAE2E189D693E8C36676BD09A0F3622FBA094800452217CC900000000000000000000001)
+
 FIELDS = {f.name: f for f in (
     GOLDILOCKS, GOLDILOCKS_PLONKY2, BN254_FR, BN254_FP, BLS12_381_FR,
-    BLS12_381_FP, BLS12_377_FR, PALLAS_P, VESTA_Q, TEST_BM64_FP,
-    TEST_BM64_FR, TEST_BM64_FR_SCALAR)}
+    BLS12_381_FP, BLS12_377_FR, BLS12_377_FP, PALLAS_P, VESTA_Q,
+    TEST_BM64_FP, TEST_BM64_FR, TEST_BM64_FR_SCALAR, GOLDILOCKS_BM)}
 
 CURVES = {c.name: c for c in (
-    BN254_G1, BLS12_381_G1, PALLAS_G1, VESTA_G1, TEST_BM64_G1)}
+    BN254_G1, BLS12_381_G1, PALLAS_G1, VESTA_G1, TEST_BM64_G1,
+    BLS12_381_G2, BN254_G2, BLS12_377_G2, TEST_BM64_G2)}
 
 
 def get_field(name: str) -> FieldParams:

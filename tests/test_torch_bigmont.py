@@ -151,8 +151,13 @@ def test_kernel_wrapper_contract():
     with pytest.raises(ValueError):
         FK.check_words("bigmont_ew", fp, x[:4])
     consts = FK.field_consts(fp)
-    assert consts.shape == (3 * fp.n_ref_limbs + 1,)
-    assert int(consts[-1]) * fp.modulus % (1 << 32) == (1 << 32) - 1
+    assert consts.shape == (3 * fp.n_ref_limbs + 2,)
+    assert int(consts[-2]) * fp.modulus % (1 << 32) == (1 << 32) - 1
+    # the fp2 nonresidue, a small signed integer in two's complement
+    assert int(consts[-1]) == 0
+    assert int(FK.field_consts(fp, nr=-5)[-1]) == (1 << 32) - 5
+    with pytest.raises(ValueError):
+        FK.field_consts(fp, nr=16)
 
 
 def test_ntt_refuses_wide_fields():

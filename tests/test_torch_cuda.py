@@ -129,11 +129,11 @@ def test_wide_cols_and_mid_kernels_vs_plain(dev, field):
         x = _wide_words(field, rng, dev, 3, 1 << lg, 16)
         a = _wide_words(field, rng, dev, 1 << lg, 4)
         b = _wide_words(field, rng, dev, 1 << lg, 4)
-        for xx in (x, x[0].contiguous()):
+        for xx in (x, x[:, 0].contiguous()):
             got = K.wide_cols(field, xx, tw, lg)
             torch.cuda.synchronize()
             assert torch.equal(got, K.wide_cols_plain(field, xx, tw, lg))
-        for xx in (x, x[0]):
+        for xx in (x, x[:, 0].contiguous()):
             got = K.wide_mid(field, xx, a, b)
             torch.cuda.synchronize()
             assert torch.equal(got, K.wide_mid_plain(field, xx, a, b))
@@ -202,8 +202,11 @@ def _point_cases(curve, n, dev):
         c[:, 36:38] = 0
     p[1][:, 38] = 0
     a = ops.affine_from_ints(aff, dev)
-    lam = F.from_int_list([rng.randrange(1, F.p) for _ in range(n)],
-                          device=dev)
+    if ops.degree == 1:
+        lam = [rng.randrange(1, F.p) for _ in range(n)]
+    else:
+        lam = [(rng.randrange(F.p), rng.randrange(1, F.p)) for _ in range(n)]
+    lam = F.from_int_list(lam, device=dev)
     l2 = F.sqr(lam)
     l3 = F.mul(l2, lam)
     q = ops._sel(ops.affine_is_inf(a), ops.xyzz_infinity((n,), dev),
@@ -266,3 +269,62 @@ def test_msm_on_card(dev):
     FK.reset_launches()
     assert mult_pippenger("test_bm64", pts, sc) == msm_naive(cp, pts, sc)
     assert all(v > 0 for v in {**EK.launches, **FK.launches}.values())
+
+
+# -- the G2 (fp2) point kernels ----------------------------------------------------
+
+G2_CURVES = ["test_bm64_g2", "bn254_g2", "bls12_381_g2", "bls12_377_g2"]
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_fp2_point_kernels_vs_plain(dev, curve):
+    """Each fp2 kernel against its plain version with the planted lanes,
+    on the four G2 curves (nonresidues 7, -1, -1, -5), and the madd on
+    point-major rows as the MSM's slab gives them."""
+    from sppark_tpu_torch.ec import kernels as EK
+
+    p, a, q = _point_cases(curve, 96, dev)
+    rows = torch.cat([a[0], a[1]]).T.contiguous()
+    w = a[0].shape[0]
+    a_rows = (rows[:, :w].T, rows[:, w:].T)
+    before = dict(EK.fp2_launches)
+    for got, want in ((EK.xyzz_madd(curve, p, a),
+                       EK.xyzz_madd_plain(curve, p, a)),
+                      (EK.xyzz_madd(curve, p, a_rows),
+                       EK.xyzz_madd_plain(curve, p, a)),
+                      (EK.xyzz_add(curve, p, q),
+                       EK.xyzz_add_plain(curve, p, q)),
+                      (EK.xyzz_dbl(curve, p), EK.xyzz_dbl_plain(curve, p))):
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert {k: v - before[k] for k, v in EK.fp2_launches.items()} == {
+        "ec_fp2_xyzz_madd": 2, "ec_fp2_xyzz_add": 1, "ec_fp2_xyzz_dbl": 1}
+
+
+@pytest.mark.parametrize("curve,n", [("test_bm64_g2", 1 << 10),
+                                     ("bls12_381_g2", 64)])
+def test_g2_msm_on_card(dev, curve, n):
+    """A G2 MSM through the entry point against msm_naive, with infinity,
+    zero, r - 1 and a doubling term planted; every fp2 kernel and the
+    Montgomery multiply launched."""
+    import random
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import mult_pippenger
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.oracle.msm import msm_naive
+
+    cp = params.get_curve(curve)
+    o = get_oracle(cp)
+    rng = random.Random(6)
+    base = [o.random_point(rng) for _ in range(8)]
+    pts = [base[i % 8] for i in range(n)]
+    pts[3] = o.infinity_affine()
+    r = cp.scalar.modulus
+    sc = [rng.randrange(r) for _ in range(n)]
+    sc[0], sc[1], sc[4], sc[12] = 0, r - 1, 5, 5
+    EK.reset_launches()
+    FK.reset_launches()
+    assert mult_pippenger(curve, pts, sc) == msm_naive(cp, pts, sc)
+    assert all(v > 0 for v in EK.fp2_launches.values())
+    assert FK.launches["bigmont_ew"] > 0
