@@ -68,7 +68,22 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      phases) and times each fp2 kernel alone at its main-path shapes
      beside its plain version and its bound, and prints the G2 phases'
      seconds;
- 17. prints one JSON line of the kernels, the card's name and power limit,
+ 17. holds the four batch-affine pair kernels (ec_pair_prep / _finish,
+     ec_fp2_pair_prep / _finish) against their plain versions on
+     test_bm64, Pasta, BLS12-381 and the four G2 curves, exactly: planted
+     infinities, doubling, cancellation and a y == 0 doubling, a warp with
+     no doubling lane, one with one, one of all doubling lanes, on
+     limb-major operands and on the even/odd views a tree level reads;
+ 18. drives the segmented-tree MSM (mode="tree") through `MSMContext`:
+     BLS12-381 G1 2^24 on phase 7's input, equal to its exact result, with
+     the launch counts set to 0 just before and read just after, the
+     chunked invoke, and at 2^10 `msm_naive` with planted and all-equal
+     scalars, Montgomery-form scalars and the plain path on the card; then
+     BLS12-381 G2 2^23 on phase 15's input, equal to its exact result;
+ 19. times both tree MSMs, profiles each invoke (peak memory, busy share,
+     phases, kernels) and times each pair kernel alone at its level-1
+     shape beside its plain version and its bound;
+ 20. prints one JSON line of the kernels, the card's name and power limit,
      and last {"ok": true, "device": {...}}.
 Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
 integer operations over the card's INT32 rate (SMs x 64 lanes x the
@@ -80,6 +95,7 @@ Any failed check raises, so the run exits non-zero and prints no last line.
 It exits non-zero at once without a CUDA device or without the package.
 """
 
+import bisect
 import json
 import random
 import re
@@ -308,27 +324,31 @@ def reset_all():
     FK.reset_launches()
 
 
-def read_all(curve):
-    """The launch counts of the kernels a curve's MSM runs: its degree's
-    point kernels and the Montgomery multiply."""
+def read_all(curve, mode="auto"):
+    """The launch counts of the kernels a curve's MSM runs in `mode`: its
+    degree's point kernels of the slab (madd, add, dbl) or of the tree
+    (pair prep and finish, add, dbl), and the Montgomery multiply."""
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
-    from sppark_tpu_torch.params import get_curve
-    points = EK.launches if get_curve(curve).fp2 is None else \
-        EK.fp2_launches
-    return {**points, **FK.launches}
+    ops = EK.TREE_OPS if mode == "tree" else EK.SLAB_OPS
+    counts = {**EK.launches, **EK.fp2_launches}
+    names = [EK.kernel_name(op, curve) for op in ops]
+    return {**{k: counts[k] for k in names}, **FK.launches}
 
 
-def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL):
-    """Phases 7/8/15: the MSM of 2^lg through the entry points, launch
-    counts around it, and its checks: `exact(words)` is the exact result
-    (default: tiled_oracle over the drawn points), the small checks run at
-    2^lg_small.  Returns (ctx, words on the device, launches)."""
+def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL,
+             mode="auto"):
+    """Phases 7/8/15/18: the MSM of 2^lg in `mode` through the entry
+    points, launch counts around it, and its checks: `exact(words)` is the
+    exact result (default: tiled_oracle over the drawn points), the small
+    checks run at 2^lg_small (the tree's also with all-equal scalars).
+    Returns (ctx, words on the device, launches, the exact result, the
+    base points)."""
     import torch
     from sppark_tpu_torch.ec import get_curve_ops
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
-    from sppark_tpu_torch.msm import MSMContext, MSMSlabStages
+    from sppark_tpu_torch.msm import MSMContext, MSMSlabStages, MSMTreeStages
     from sppark_tpu_torch.msm import pippenger, slab
     from sppark_tpu_torch.oracle.ec import get_oracle
     from sppark_tpu_torch.oracle.msm import msm_naive
@@ -340,30 +360,43 @@ def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL):
     base, pts, words, wd = msm_input(curve, lg, dev, base)
     print(f"{curve} 2^{lg}: input made in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    ctx = MSMContext(curve, n)
+    ctx = MSMContext(curve, n, mode=mode)
     ctx.set_points(pts)
-    cap, n_rows, wg = ctx.stages.plan(n)
-    print(f"{curve} 2^{lg}: wbits {ctx.wbits}, nwins {ctx.nwins}, "
-          f"slab cap {cap} x {n_rows} rows per window, {wg} window(s) per "
-          f"group, {ctx.nwins // wg} group(s)", flush=True)
+    tree = mode == "tree"
+    if tree:
+        m0, lmax, wg = ctx.stages.plan(ctx.stages.schedule(wd)[-1])
+        print(f"{curve} 2^{lg} tree: wbits {ctx.wbits}, nwins {ctx.nwins}, "
+              f"m0 {m0} slots per window, lmax {lmax} levels, {wg} "
+              f"window(s) per group, {-(-ctx.nwins // wg)} group(s), level "
+              f"0 {m0 * wg * 8 * ctx.ops.F.words / 2**30:.3f} GiB per "
+              f"group", flush=True)
+    else:
+        cap, n_rows, wg = ctx.stages.plan(n)
+        print(f"{curve} 2^{lg}: wbits {ctx.wbits}, nwins {ctx.nwins}, "
+              f"slab cap {cap} x {n_rows} rows per window, {wg} window(s) "
+              f"per group, {ctx.nwins // wg} group(s)", flush=True)
     torch.cuda.synchronize()
     reset_all()
     got = ctx.invoke(wd)
     torch.cuda.synchronize()
-    launches = read_all(curve)
-    print(f"main path MSM {curve} 2^{lg} launches: {launches}", flush=True)
+    launches = read_all(curve, mode)
+    print(f"main path MSM {curve} 2^{lg} ({mode}) launches: {launches}",
+          flush=True)
     check(all(v > 0 for v in launches.values()),
-          f"MSM {curve} 2^{lg} went through madd, add, dbl and the "
-          f"Montgomery multiply")
+          f"MSM {curve} 2^{lg} ({mode}) went through "
+          + ("pair prep, pair finish" if tree else "madd")
+          + ", add, dbl and the Montgomery multiply")
     t0 = time.perf_counter()
     want = exact(words) if exact else tiled_oracle(curve, base, words)
-    check(got == want, f"MSM {curve} 2^{lg} == exact oracle over all "
-                       f"2^{lg} terms ({time.perf_counter() - t0:.1f} s)")
+    check(got == want, f"MSM {curve} 2^{lg} ({mode}) == exact oracle over "
+                       f"all 2^{lg} terms ({time.perf_counter() - t0:.1f} "
+                       f"s)")
     if full:
-        ctx_c = MSMContext(curve, n, chunk=n >> 2)
+        ctx_c = MSMContext(curve, n, chunk=n >> 2, mode=mode)
         ctx_c.set_points(pts)
         check(ctx_c.invoke(wd) == want,
-              f"MSM {curve} 2^{lg} chunked by 2^{lg - 2} == the same point")
+              f"MSM {curve} 2^{lg} ({mode}) chunked by 2^{lg - 2} == the "
+              f"same point")
         del ctx_c
     # small: msm_naive with planted scalars and points, Montgomery scalars
     o = get_oracle(cp)
@@ -377,28 +410,36 @@ def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL):
     sc = [rng.randrange(r) for _ in range(m)]
     sc[:8] = [0, r - 1, 7, 11, 2, 2, 3, 3]
     want_s = msm_naive(cp, spts, sc)
-    ctx_s = MSMContext(curve, m)
+    ctx_s = MSMContext(curve, m, mode=mode)
     check(ctx_s.invoke(sc, points=spts) == want_s,
-          f"MSM {curve} 2^{lg_small} == msm_naive (0, r-1, doubling and "
-          f"cancelling terms)")
+          f"MSM {curve} 2^{lg_small} ({mode}) == msm_naive (0, r-1, "
+          f"doubling and cancelling terms)")
     mont = scalar_words([cp.scalar.to_mont(s) for s in sc], ctx_s.n_words,
                         dev)
     check(ctx_s.invoke(mont, points=spts, mont=True) == want_s,
-          f"MSM {curve} 2^{lg_small} with Montgomery-form scalars")
+          f"MSM {curve} 2^{lg_small} ({mode}) with Montgomery-form scalars")
+    if tree:
+        k = sc[-1]
+        check(ctx_s.invoke([k] * m, points=spts) == msm_naive(cp, spts,
+                                                              [k] * m),
+              f"MSM {curve} 2^{lg_small} ({mode}) with all-equal scalars "
+              f"== msm_naive (one bucket per window holds every point)")
     if full:
         wbits = PLAIN_WBITS
         nwins = (cp.scalar.bits + wbits - 1) // wbits
-        st = MSMSlabStages(curve, wbits, nwins, ctx_s.n_words, kern=EK.PLAIN)
+        stages = MSMTreeStages if tree else MSMSlabStages
+        st = stages(curve, wbits, nwins, ctx_s.n_words, kern=EK.PLAIN)
         F = get_curve_ops(curve, FK.PLAIN).F
         rows = slab.point_rows(F, *get_curve_ops(curve).affine_from_ints(
             spts, dev))
         t0 = time.perf_counter()
         wx, wy = st(scalar_words(sc, ctx_s.n_words, dev), rows)
         plain = pippenger.collect(cp, wbits, nwins, wx, wy)
-        check(plain == want_s, f"MSM {curve} 2^{lg_small} on the plain path "
-                               f"on the card, {wbits}-bit windows, == "
-                               f"msm_naive ({time.perf_counter() - t0:.1f} s)")
-    return ctx, wd, launches
+        check(plain == want_s, f"MSM {curve} 2^{lg_small} ({mode}) on the "
+                               f"plain path on the card, {wbits}-bit "
+                               f"windows, == msm_naive "
+                               f"({time.perf_counter() - t0:.1f} s)")
+    return ctx, wd, launches, want, base
 
 
 def wall_ms(fn, reps):
@@ -444,15 +485,18 @@ def sqr_ops(n32):
 
 
 MSM_RANGES = ("msm.schedule", "msm.gather", "msm.madd_rounds", "msm.fold",
-              "msm.integrate", "msm.to_affine")
+              "msm.tree_levels", "msm.extract", "msm.integrate",
+              "msm.to_affine")
+#: the point kernels by their template's op number (csrc/ec_kernel.cuh)
+EC_OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
 
 
 def kernel_group(name):
     """A device event's name, the point and field kernels by their op."""
     m = re.search(r"ec_kernel<mont::(Fp2?)<\d+>, ?(\d)>", name)
     if m:
-        return ("ec_fp2_xyzz_" if m.group(1) == "Fp2" else "ec_xyzz_") + \
-            ("madd", "add", "dbl")[int(m.group(2))]
+        return ("ec_fp2_" if m.group(1) == "Fp2" else "ec_") + \
+            EC_OPS[int(m.group(2))]
     return "bigmont_ew" if "ew_kernel<" in name else name[:60]
 
 
@@ -479,6 +523,8 @@ def profile_breakdown(prof):
     phases = {k: [0.0, 0.0] for k in MSM_RANGES}
     for lo, hi, name in spans:
         phases[name][1] += (hi - lo) / 1e6
+    spans.sort()
+    starts = [lo for lo, _, _ in spans]
     by_kernel = {}
     busy = 0.0
     for e in device:
@@ -488,10 +534,10 @@ def profile_breakdown(prof):
         t, c = by_kernel.get(k, (0.0, 0))
         by_kernel[k] = (t + ms, c + 1)
         at = launched_at.get(e.correlation_id())
-        for lo, hi, name in spans:
-            if at is not None and lo <= at < hi:
-                phases[name][0] += ms
-                break
+        # the ranges do not nest: the last one to start before `at`
+        j = bisect.bisect_right(starts, at) - 1 if at is not None else -1
+        if j >= 0 and at < spans[j][1]:
+            phases[spans[j][2]][0] += ms
     return busy, {k: tuple(v) for k, v in phases.items()}, by_kernel
 
 
@@ -569,6 +615,7 @@ def msm_times(ctx, wd, curve, lg, card):
     phases, by kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from sppark_tpu_torch.msm import MSMTreeStages
 
     n = 1 << lg
     t_msm = wall_ms(lambda: ctx.invoke(wd), reps=3)
@@ -593,13 +640,18 @@ def msm_times(ctx, wd, curve, lg, card):
              else "device busy time not measured (no device events)")
           + f"  [{card}]", flush=True)
     stats = ctx.stages.schedule(wd)[-1]
-    rounds, max_rows = (int(v) for v in stats.tolist())
+    if isinstance(ctx.stages, MSMTreeStages):
+        m0, lmax, wg = ctx.stages.plan(stats)
+        shape = f"m0 {m0}, lmax {lmax}, {wg} window(s) per group"
+    else:
+        rounds, max_rows = (int(v) for v in stats.tolist())
+        shape = (f"rounds {rounds}, fold levels "
+                 f"{max(0, (max_rows - 1).bit_length())}")
     print(f"MSM {curve} 2^{lg} phases under the profiler (device ms of the "
           f"kernels launched in each / host ms in it): " + ", ".join(
               f"{k} {d:.4f} / {h:.4f}" for k, (d, h) in phases.items())
           + f"; the ranges hold {sum(d for d, _ in phases.values()):.4f} "
-          f"of the {busy:.4f} busy ms; rounds {rounds}, fold levels "
-          f"{max(0, (max_rows - 1).bit_length())}  [{card}]", flush=True)
+          f"of the {busy:.4f} busy ms; {shape}  [{card}]", flush=True)
     print(f"MSM {curve} 2^{lg} device ms by kernel (launches): "
           + ", ".join(f"{k} {ms:.4f} ({c})" for k, (ms, c) in sorted(
               by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
@@ -608,7 +660,9 @@ def msm_times(ctx, wd, curve, lg, card):
 
 
 def msm_phases(dev, card, rate):
-    """Phases 6-9.  Returns the kernels' entries of the summary line."""
+    """Phases 6-9.  Returns (the kernels' entries of the summary line, the
+    main path's base points and exact result, for the tree in phase
+    18)."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
@@ -655,9 +709,11 @@ def msm_phases(dev, card, rate):
              f"{curve} madd, one warp with no special lane")
 
     # -- 7. main path: BLS12-381 G1 2^24 -----------------------------------------
-    ctx, wd, launches = msm_main(MSM_CURVE, MSM_LG, dev, full=True)
+    ctx, wd, launches, want, base = msm_main(MSM_CURVE, MSM_LG, dev,
+                                             full=True)
     # -- 8. Pasta G1 2^20 ------------------------------------------------------
-    pctx, pwd, plaunches = msm_main(PASTA_CURVE, PASTA_LG, dev, full=False)
+    pctx, pwd, plaunches, _, _ = msm_main(PASTA_CURVE, PASTA_LG, dev,
+                                          full=False)
 
     # -- 9. times ------------------------------------------------------------------
     t_msm, peak, resident, busy, t_prof, phases, by_kernel = msm_times(
@@ -713,7 +769,7 @@ def msm_phases(dev, card, rate):
                         "replaces": rep, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
                         "bound_ms": b, "bound_by": by, "library_ms": None})
-    return entries
+    return entries, (base, want)
 
 
 # -- wide-field NTT phases (10-13) --------------------------------------------------
@@ -1149,7 +1205,9 @@ def g2_base(curve, nbase, seed):
 
 def g2_phases(dev, card, rate):
     """Phases 14-16.  Returns (the fp2 kernels' entries of the summary
-    line, the phases' numbers, bigmont_ew's launches on the main path)."""
+    line, the phases' numbers, bigmont_ew's launches on the main path, the
+    main path's base points and exact result, for the tree in phase
+    18)."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.msm import MSMContext
@@ -1157,7 +1215,7 @@ def g2_phases(dev, card, rate):
     from sppark_tpu_torch.oracle.msm import msm_naive
     from sppark_tpu_torch.params import get_curve
 
-    names = tuple(EK.fp2_launches)
+    names = tuple(EK.kernel_name(op, G2_CURVE) for op in EK.SLAB_OPS)
     errs = dict.fromkeys(names, 0)
     seconds = {}
 
@@ -1209,7 +1267,8 @@ def g2_phases(dev, card, rate):
         return o.jacobian_to_affine(o.scalar_mul(G, k % r))
 
     t0 = time.perf_counter()
-    ctx, wd, launches = msm_main(G2_CURVE, G2_LG, dev, full=True, base=base,
+    ctx, wd, launches, want, _ = msm_main(G2_CURVE, G2_LG, dev, full=True,
+                                          base=base,
                                  exact=exact, lg_small=LG_SMALL_G2)
     seconds["15 main path and checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1257,7 +1316,208 @@ def g2_phases(dev, card, rate):
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
             "library_ms": None})
-    return entries, numbers, launches["bigmont_ew"]
+    return entries, numbers, launches["bigmont_ew"], (base, want)
+
+
+# -- tree MSM phases (17-19) --------------------------------------------------------
+
+PAIR_CURVES = EC_CURVES + G2_KERNEL_CURVES
+TREE_G2_LG = G2_LG      # the G2 tree on phase 15's whole input
+
+
+def pair_cases(curve, n, dev, seed):
+    """Affine l, r over n >= 96 lanes.  Lanes 0..31 (one warp) are generic
+    pairs, no doubling; in the second warp lane 33 doubles, 34 cancels, 35
+    has l at infinity, 36 r, 37 both, 38 doubles a y == 0 pair (not on the
+    curve: the case that goes to infinity); lanes 64..95 all double."""
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.params import get_curve
+
+    o = get_oracle(get_curve(curve))
+    rng = random.Random(seed)
+    pool = [o.random_point(rng) for _ in range(16)]
+    j = [rng.randrange(16) for _ in range(n)]
+    L = [pool[k] for k in j]
+    R = [pool[(k + 1 + rng.randrange(15)) % 16] for k in j]
+    R[33] = L[33]
+    R[34] = o.affine_neg(L[34])
+    L[35] = L[37] = R[36] = R[37] = o.infinity_affine()
+    R[64:96] = L[64:96]
+    ops = get_curve_ops(curve, FK.PLAIN)
+    l, r = ops.affine_from_ints(L, dev), ops.affine_from_ints(R, dev)
+    l[1][:, 38] = r[1][:, 38] = 0
+    r[0][:, 38] = l[0][:, 38]
+    return l, r
+
+
+def pair_views(l, r):
+    """The same pairs as a tree level reads them: the even and odd rows of
+    point-major rows (level 0), and the even and odd lanes of limb-major
+    coordinates (a later level)."""
+    import torch
+    W, n = l[0].shape
+    rows = torch.stack([torch.cat(l).T, torch.cat(r).T], 1).reshape(2 * n,
+                                                                  2 * W)
+    X = torch.stack([l[0], r[0]], -1).reshape(W, 2 * n)
+    Y = torch.stack([l[1], r[1]], -1).reshape(W, 2 * n)
+    return [("point-major rows", (rows[0::2, :W].T, rows[0::2, W:].T),
+             (rows[1::2, :W].T, rows[1::2, W:].T)),
+            ("limb-major lanes", (X[:, 0::2], Y[:, 0::2]),
+             (X[:, 1::2], Y[:, 1::2]))]
+
+
+def pair_level1(curve, ctx, wd, M, S, A):
+    """The two pair kernels at their level-1 shape on the main path's data:
+    window group 0's level 0 (tree.level0), its even and odd rows.  M, S,
+    A: the 32-bit operations of one product, squaring and addition of the
+    coordinate field.  prep counts 3 additions per lane; finish 2 M + S +
+    5 A per chord lane and 2 M + 2 S + 6 A per tangent lane, nothing on the
+    lanes that only copy or zero.  Returns the cases for time_kernels."""
+    import torch
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.msm import tree
+
+    st = ctx.stages
+    sched = st.schedule(wd)
+    m0, _, wg = st.plan(sched[-1])
+    g = slice(0, wg)
+    lvl = tree.level0(*(a[g] for a in sched[:5]), m0, ctx.rows)
+    del sched
+    W = lvl.shape[1] // 2
+    l = (lvl[0::2, :W].T, lvl[0::2, W:].T)
+    r = (lvl[1::2, :W].T, lvl[1::2, W:].T)
+    lanes = l[0].shape[1]
+    den, flags = EK.affine_pair_prep(curve, l, r)
+    inv = tree.batch_inv_flat(st.ops.F, den)
+    chord = int(((flags & EK.ACTIVE) != 0).sum()) - int(
+        ((flags & EK.DBL) != 0).sum())
+    tangent = int(((flags & EK.DBL) != 0).sum())
+    print(f"{curve} tree level 1 of group 0: {lanes} lanes, {chord} chord, "
+          f"{tangent} tangent, {lanes - chord - tangent} copy or zero",
+          flush=True)
+    pre = EK.kernel_name("pair_", curve)
+    return [
+        (pre + "prep", lanes, lambda: EK.affine_pair_prep(curve, l, r),
+         lambda: EK.affine_pair_prep_plain(curve, l, r),
+         (5 * 4 * W + 4) * lanes, 3 * A * lanes),
+        (pre + "finish", lanes,
+         lambda: EK.affine_pair_finish(curve, l, r, inv, flags),
+         lambda: EK.affine_pair_finish_plain(curve, l, r, inv, flags),
+         (7 * 4 * W + 4) * lanes,
+         chord * (2 * M + S + 5 * A) + tangent * (2 * M + 2 * S + 6 * A)),
+    ]
+
+
+def tree_phases(dev, card, rate, g1, g2):
+    """Phases 17-19 on the G1 and G2 main paths' (base points, exact
+    result).  Returns (the pair kernels' entries of the summary line, the
+    phases' numbers, the tree paths' launches)."""
+    import torch
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm.tree import batch_inv_flat
+    from sppark_tpu_torch.params import get_curve
+
+    names = [EK.kernel_name(op, c) for c in (MSM_CURVE, G2_CURVE)
+             for op in ("pair_prep", "pair_finish")]
+    errs = dict.fromkeys(names, 0)
+    seconds = {}
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        e = word_err(got, want)
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"{name} == plain: {what}")
+
+    # -- 17. the pair kernels vs plain: seven curves, planted lanes, views --
+    t0 = time.perf_counter()
+    for curve in PAIR_CURVES:
+        l, r = pair_cases(curve, 128, dev, seed=13)
+        prep, finish = (EK.kernel_name(op, curve)
+                        for op in ("pair_prep", "pair_finish"))
+        den, flags = EK.affine_pair_prep_plain(curve, l, r)
+        check(sorted(set(flags.tolist())) == [0, 1, 3, 4, 8],
+              f"{curve} pair cases: every flag word planted")
+        inv = batch_inv_flat(get_curve_ops(curve, FK.PLAIN).F, den)
+        want = EK.affine_pair_finish_plain(curve, l, r, inv, flags)
+        for what, lv, rv in [("limb-major", l, r)] + pair_views(l, r):
+            for k, warp in ((slice(0, 32), "a warp with no doubling lane"),
+                            (slice(32, 64), "a warp with one doubling "
+                                            "lane and the specials"),
+                            (slice(64, 96), "a warp of doubling lanes"),
+                            (slice(0, 128), "all lanes")):
+                lk = tuple(c[:, k] for c in lv)
+                rk = tuple(c[:, k] for c in rv)
+                same(prep, EK.affine_pair_prep(curve, lk, rk),
+                     (den[:, k], flags[k]), f"{curve} {what}, {warp}")
+                same(finish,
+                     EK.affine_pair_finish(curve, lk, rk, inv[:, k],
+                                           flags[k]),
+                     tuple(c[:, k] for c in want), f"{curve} {what}, {warp}")
+    seconds["17 pair kernels vs plain"] = time.perf_counter() - t0
+
+    # -- 18. the tree MSM: G1 2^24, then G2 --------------------------------
+    t0 = time.perf_counter()
+    base, want = g1
+    ctx, wd, launches, _, _ = msm_main(
+        MSM_CURVE, MSM_LG, dev, full=True, base=base,
+        exact=lambda words: want, mode="tree")
+    seconds["18 G1 tree and checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base2, want2 = g2
+    ctx2, wd2, launches2, _, _ = msm_main(
+        G2_CURVE, TREE_G2_LG, dev, full=False, base=base2,
+        exact=lambda words: want2, lg_small=LG_SMALL_G2, mode="tree")
+    seconds["18 G2 tree and checks"] = time.perf_counter() - t0
+
+    # -- 19. times ------------------------------------------------------------
+    t0 = time.perf_counter()
+    numbers = {}
+    timing = {}
+    for curve, lg, c, w, key in ((MSM_CURVE, MSM_LG, ctx, wd, "tree_g1"),
+                                 (G2_CURVE, TREE_G2_LG, ctx2, wd2,
+                                  "tree_g2")):
+        t_msm, peak, resident, busy, t_prof, phases, by_kernel = msm_times(
+            c, w, curve, lg, card)
+        numbers.update({f"{key}_msm_ms": t_msm, f"{key}_peak_gib": peak,
+                        f"{key}_resident_gib": resident,
+                        f"{key}_device_busy_ms": busy,
+                        f"{key}_profiled_wall_ms": t_prof,
+                        f"{key}_phases_device_host_ms": phases,
+                        f"{key}_kernels_ms_launches": by_kernel})
+        cp = get_curve(curve)
+        N = cp.field.n_ref_limbs
+        ops = (fp2_ops(N, cp.fp2.nr_small) if cp.fp2 else
+               (prod_ops(N), sqr_ops(N), 2 * N))
+        cases = pair_level1(curve, c, w, *ops)
+        timing.update(time_kernels(cases, same, rate, card))
+        del cases
+        torch.cuda.empty_cache()
+    del ctx, ctx2
+    seconds["19 times"] = time.perf_counter() - t0
+    print("tree phases' seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+    numbers.update({"tree_g1_launches": launches,
+                    "tree_g2_launches": launches2,
+                    "tree_phase_seconds": seconds})
+    line = {"pair_prep": 477, "pair_finish": 523}
+    entries = []
+    for name in names:
+        ms, pms, b, by = timing[name]
+        op = name[name.index("pair_"):]
+        counts = launches if name in launches else launches2
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"sppark_tpu_torch/csrc/{EK.SOURCES[name]}.cu",
+            "replaces": f"sppark_tpu/ec/pallas_ops.py:{line[op]}"
+                        + (" (degree 2)" if "fp2" in name else ""),
+            "launches": counts[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
+            "library_ms": None})
+    return entries, numbers, {**launches, **launches2}
 
 
 def main():
@@ -1299,7 +1559,7 @@ def main():
                           line)
             if m:
                 entry = (f"ec_kernel<{m.group(1)}<{m.group(2)}>,"
-                         f"{('madd', 'add', 'dbl')[int(m.group(3))]}>")
+                         f"{EC_OPS[int(m.group(3))]}>")
             if "registers" in line or "spill" in line:
                 print(f"  {name} {entry}: {line.strip()}")
 
@@ -1503,16 +1763,25 @@ def main():
               f"{b / ms:.3f} of bound)  [{card}]", flush=True)
 
     del xm, tables, main_shapes, state, x, y
-    msm_entries = msm_phases(dev, card, rate)
+    msm_entries, g1_input = msm_phases(dev, card, rate)
     torch.cuda.empty_cache()
     wide_entries, wide_numbers = wide_phases(dev, card, rate)
     torch.cuda.empty_cache()
-    g2_entries, g2_numbers, g2_mont = g2_phases(dev, card, rate)
-    for e in msm_entries:
-        if e["name"] == "bigmont_ew":      # the G1 and G2 MSMs' launches
-            e["launches"] += g2_mont
+    g2_entries, g2_numbers, g2_mont, g2_input = g2_phases(dev, card, rate)
+    torch.cuda.empty_cache()
+    tree_entries, tree_numbers, tree_launches = tree_phases(
+        dev, card, rate, g1_input, g2_input)
+    # the G1 and G2 slab MSMs' launches, then the two tree MSMs' (bigmont_ew
+    # counted once per path: the G1 and G2 trees' counts are read apart)
+    tree_mont = (tree_numbers["tree_g1_launches"]["bigmont_ew"]
+                 + tree_numbers["tree_g2_launches"]["bigmont_ew"])
+    for e in msm_entries + g2_entries:
+        if e["name"] == "bigmont_ew":
+            e["launches"] += g2_mont + tree_mont
+        elif e["name"] in tree_launches:
+            e["launches"] += tree_launches[e["name"]]
 
-    # -- 17. summary -----------------------------------------------------------
+    # -- 20. summary -----------------------------------------------------------
     src = "sppark_tpu_torch/csrc/ntt_gl64.cu"
     kernels_line = {"kernels": [
         {"name": "gl64_ntt_rows", "route": "cuda", "source": src,
@@ -1529,11 +1798,11 @@ def main():
          "max_abs_err": errs["gl64_ntt_cols"], "ms": cols_ms,
          "plain_ms": cols_plain_ms, "bound_ms": cols_bound,
          "bound_by": cols_by, "library_ms": None},
-    ] + msm_entries + wide_entries + g2_entries}
+    ] + msm_entries + wide_entries + g2_entries + tree_entries}
     print(json.dumps({"ntt_ms": t_ntt, "lde_ms": t_lde,
                       "lde_parts_ms": parts, "ntt_launches": ntt_launches,
                       "lde_launches": lde_launches, **wide_numbers,
-                      **g2_numbers, "card": card}))
+                      **g2_numbers, **tree_numbers, "card": card}))
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,41 @@
+// G2 (fp2) batch-affine pair add kernels for Hopper (sm_90a), one pair of
+// affine points per thread: ec_fp2_pair_prep and ec_fp2_pair_finish
+// replace sppark_tpu/ec/pallas_ops.py:_pair_prep_call and
+// _pair_finish_call for degree-2 curves (_KCtx with degree 2,
+// pallas_ops.py:89-220), the two halves of one level of the
+// segmented-tree MSM (msm/tree.py) around its batch inversion, which for
+// fp2 runs through the norm in the base field.
+//
+// The formulas and the case order are pair.cuh's, shared with the G1
+// kernels of ec_pair.cu; the operand views and the launch are
+// ec_kernel.cuh's.  The element is mont::Fp2<n32> (mont.cuh): a coordinate
+// is (2 n32, n) words, c0's then c1's, so infinity is all 4 n32 words of
+// (x, y) zero.  Widths: n32 = 2 (test_bm64_g2), 8 (bn254_g2), 12
+// (bls12_381_g2, bls12_377_g2).
+//
+// What bounds them on the card: prep moves five fp2 coordinates per lane
+// for six base additions, so memory bounds it; finish does two fp2
+// products and a squaring (about 8 base products) against seven
+// coordinates moved, so the integer multiply rate bounds it at n32 = 12.
+// One thread per pair holds both coefficients, as the fp2 xyzz kernels do.
+
+#include "ec_kernel.cuh"
+
+// views: the host array [pointer, sw, sl] per input, in order (x1, y1, x2,
+// y2) for prep, (x1, y1, x2, y2, inv, flags) for finish, each coordinate
+// (2 n32, n).  out: (2 n32 + 1, n), den then the flags, for prep; (2,
+// 2 n32, n) for finish.  consts: [p, one, a4, m0, nr] of the base field
+// (ff/kernels.py:field_consts).
+extern "C" int ec_fp2_pair_prep(int n32, const void* views, void* out,
+                                long long n, const void* consts,
+                                void* stream) {
+    return ec::dispatch<mont::Fp2, ec::PAIR_PREP>(n32, views, 4, out, n,
+                                                  consts, stream);
+}
+
+extern "C" int ec_fp2_pair_finish(int n32, const void* views, void* out,
+                                  long long n, const void* consts,
+                                  void* stream) {
+    return ec::dispatch<mont::Fp2, ec::PAIR_FINISH>(n32, views, 6, out, n,
+                                                    consts, stream);
+}

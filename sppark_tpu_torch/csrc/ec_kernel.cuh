@@ -1,13 +1,18 @@
-// The xyzz point kernels' body and launch, shared by ec_xyzz.cu (G1,
-// element mont::Fp<N>) and ec_fp2_*.cu (G2, element mont::Fp2<N>):
-// one point per thread, the formulas of xyzz.cuh.
+// The point kernels' body and launch, shared by ec_xyzz.cu and
+// ec_pair.cu (G1, element mont::Fp<N>) and ec_fp2_*.cu (G2, element
+// mont::Fp2<N>): one point (or pair) per thread, the formulas of xyzz.cuh
+// and pair.cuh.
 //
 // Operands: each input coordinate is a (W, n) view, W = N words for Fp<N>
 // and 2 N for Fp2<N> (c0's words, then c1's), given by a pointer and two
 // strides in words, `sw` between words and `sl` between lanes, so the
 // kernels read limb-major tensors (sw = n, sl = 1), point-major rows of the
-// MSM's slab (sw = 1, sl = 2 W) and broadcast constants (sl = 0) without a
-// copy.  The output is one contiguous (4, W, n) block, stored coalesced.
+// MSM's slab or of the tree's level 0 (sw = 1, sl = 2 W; the even or odd
+// rows: sl = 4 W), the even or odd lanes of a tree level (sw = m, sl = 2)
+// and broadcast constants (sl = 0) without a copy; the finish's flag word
+// is a view of one word.  The output is one contiguous (rows, n) block,
+// stored coalesced: (4 W, n) for the xyzz ops, den then the flags, (W + 1,
+// n), for the pair prep, (x, y), (2 W, n), for the pair finish.
 //
 // Each entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
@@ -16,6 +21,7 @@
 
 #include <cuda_runtime.h>
 
+#include "pair.cuh"
 #include "xyzz.cuh"
 
 namespace ec {
@@ -27,7 +33,7 @@ struct View {
     long long sw, sl;
 };
 
-enum Op { MADD = 0, ADD = 1, DBL = 2 };
+enum Op { MADD = 0, ADD = 1, DBL = 2, PAIR_PREP = 3, PAIR_FINISH = 4 };
 
 template <int N>
 struct Args {
@@ -85,6 +91,26 @@ __global__ void __launch_bounds__(THREADS)
 ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
     long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
     if (i >= a.n) return;
+    constexpr long long W = sizeof(E) / sizeof(uint32_t);
+    if (OP == PAIR_PREP) {
+        E den;
+        uint32_t f = pair::prep(load<E>(a.in[0], i), load<E>(a.in[1], i),
+                                load<E>(a.in[2], i), load<E>(a.in[3], i),
+                                den, a.c);
+        store(a.out, a.n, i, 0, den);
+        a.out[W * a.n + i] = f;
+        return;
+    }
+    if (OP == PAIR_FINISH) {
+        E ox, oy;
+        pair::finish(load<E>(a.in[0], i), load<E>(a.in[1], i),
+                     load<E>(a.in[2], i), load<E>(a.in[3], i),
+                     load<E>(a.in[4], i), a.in[5].p[i * a.in[5].sl], ox, oy,
+                     a.c);
+        store(a.out, a.n, i, 0, ox);
+        store(a.out, a.n, i, W, oy);
+        return;
+    }
     xyzz::Point<E> r;
     if (OP == MADD) {
         r = xyzz::madd(load_point<E>(a.in, i), load<E>(a.in[4], i),
@@ -95,7 +121,6 @@ ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
     } else {
         r = xyzz::dbl(load_point<E>(a.in, i), a.c);
     }
-    constexpr long long W = sizeof(E) / sizeof(uint32_t);
     store(a.out, a.n, i, 0 * W, r.x);
     store(a.out, a.n, i, 1 * W, r.y);
     store(a.out, a.n, i, 2 * W, r.zz);

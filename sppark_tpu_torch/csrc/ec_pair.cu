@@ -1,0 +1,43 @@
+// Batch-affine pair add kernels for Hopper (sm_90a), G1, one pair of
+// affine points per thread:
+//
+//   ec_pair_prep   replaces sppark_tpu/ec/pallas_ops.py:_pair_prep_call
+//     (the chord or tangent denominator and the case flags);
+//   ec_pair_finish replaces sppark_tpu/ec/pallas_ops.py:_pair_finish_call
+//     (lambda, x3, y3 and the case selects, from the inverted
+//     denominator).
+// They are the two halves of one level of the segmented-tree MSM
+// (msm/tree.py: prep -> batch inversion across all lanes -> finish); the
+// inversion between them is a product tree over every lane of the level,
+// so it cannot live in one kernel, on the TPU or here.  The formulas and
+// the case order are in pair.cuh, the operand views and the launch in
+// ec_kernel.cuh (shared with the xyzz kernels); here the element is
+// mont::Fp<n32>, n32 = 2, 8 or 12.  Their fp2 twins are in ec_fp2_pair.cu.
+//
+// What bounds them on the card: prep does three modular additions against
+// five coordinates moved per lane, so memory bounds it; finish does two
+// products, a squaring and five additions against seven coordinates moved,
+// about even between the integer multiply rate and memory at n32 = 12.
+// The operands of a level are the even and odd slots of the level below,
+// read in place through strided views: every other point-major row of the
+// gathered level 0, every other lane of a later level.  One thread per
+// pair; the tangent leg is a per-lane branch that shares the chord's
+// completion.
+
+#include "ec_kernel.cuh"
+
+// views: the host array [pointer, sw, sl] per input, in order (x1, y1, x2,
+// y2) for prep, (x1, y1, x2, y2, inv, flags) for finish.  out: (n32 + 1,
+// n), den then the flags, for prep; (2, n32, n) for finish.  consts: [p,
+// one, a4, m0, nr] (ff/kernels.py:field_consts).
+extern "C" int ec_pair_prep(int n32, const void* views, void* out,
+                            long long n, const void* consts, void* stream) {
+    return ec::dispatch<mont::Fp, ec::PAIR_PREP>(n32, views, 4, out, n,
+                                                 consts, stream);
+}
+
+extern "C" int ec_pair_finish(int n32, const void* views, void* out,
+                              long long n, const void* consts, void* stream) {
+    return ec::dispatch<mont::Fp, ec::PAIR_FINISH>(n32, views, 6, out, n,
+                                                   consts, stream);
+}

@@ -182,6 +182,30 @@ class BigMontField:
         out = self.mul(self.mul(pre_shift, suf_shift), total_inv)
         return self.select(zero, torch.zeros_like(x), out)
 
+    def batch_inv_tree(self, x):
+        """Inversion along the last axis by a product tree: pair products
+        up to the root, ONE Fermat inversion, then each node's inverse
+        times its sibling down to the leaves (~3 products per element;
+        ff/batch_inversion.hpp:18-52 in parallel form, the port of
+        sppark_tpu/ff/base.py:batch_inv_tree).  Needs a power-of-two axis
+        and non-zero inputs."""
+        n = x.shape[-1]
+        if n & (n - 1):
+            raise ValueError(f"batch_inv_tree needs a power-of-two axis, "
+                             f"not {n}")
+        levels = [x]
+        while levels[-1].shape[-1] > 1:
+            cur = levels[-1]
+            levels.append(self.mul(cur[..., 0::2], cur[..., 1::2]))
+        inv = self.inv(levels[-1])
+        for lvl in reversed(levels[:-1]):
+            # the left child's inverse is inv * right, the right's inv *
+            # left: one product against the pairs swapped
+            pairs = lvl.reshape(lvl.shape[:-1] + (-1, 2))
+            inv = self.mul(inv.repeat_interleave(2, dim=-1),
+                           pairs.flip(-1).reshape(lvl.shape))
+        return inv
+
     # -- Montgomery domain ---------------------------------------------------------
     def to_mont(self, x):
         return self.mul(x, self._word_const(self.params.RR, x.shape[1:],

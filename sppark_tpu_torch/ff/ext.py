@@ -131,17 +131,27 @@ class Fp2Field:
         return self.const(1, batch_shape, device)
 
     # -- inversion -----------------------------------------------------------------
-    def batch_inv(self, x):
-        """Inversion along the last axis through the norm map: 1 / a =
-        conj(a) / (a0^2 - nr a1^2), the norms inverted by ONE base-field
-        batch inversion (ff/alt_bn128-fp2.hpp:135-144 with
-        ff/batch_inversion.hpp:18-52); zero lanes give zero."""
+    def _inv_by_norm(self, x, base_inv):
+        """1 / a = conj(a) / (a0^2 - nr a1^2), the norms inverted by
+        `base_inv`, one base-field batch inversion
+        (ff/alt_bn128-fp2.hpp:135-144)."""
         B = self.base
         a = self._pair(x)
         sq = B.mul(a, a)
-        ninv = B.batch_inv(self._plus_nr(sq[:, 0], sq[:, 1], sign=-1))
+        ninv = base_inv(self._plus_nr(sq[:, 0], sq[:, 1], sign=-1))
         r = B.mul(a, ninv[:, None])
         return torch.cat([r[:, 0], B.neg(r[:, 1])])
+
+    def batch_inv(self, x):
+        """Inversion along the last axis through the norm map and the base
+        field's prefix/suffix batch inversion; zero lanes give zero."""
+        return self._inv_by_norm(x, self.base.batch_inv)
+
+    def batch_inv_tree(self, x):
+        """Inversion along the last axis through the norm map and the base
+        field's product tree (the port of sppark_tpu/ff/ext.py:
+        Fp2Field.batch_inv_tree): a power-of-two axis, non-zero inputs."""
+        return self._inv_by_norm(x, self.base.batch_inv_tree)
 
     # -- host conversion -----------------------------------------------------------
     def from_int_list(self, values: Iterable, batch_shape=None,

@@ -1,14 +1,15 @@
 """Pippenger multi-scalar multiplication on G1 and G2: the port of
-sppark_tpu/msm/pippenger.py's slab pipeline (msm/pippenger.cuh analogue).
-A G2 curve runs the same stages on (2 n32, ...) fp2 coordinates
-(ff/ext.py), its point ops on the fp2 kernels.
+sppark_tpu/msm/pippenger.py's slab and tree pipelines (msm/pippenger.cuh
+analogue).  A G2 curve runs the same stages on (2 n32, ...) fp2
+coordinates (ff/ext.py), its point ops on the fp2 kernels.
 
   * breakdown: signed-digit encoding over (n_words, n) scalar words
     (pippenger.cuh:72-121), with the scalar fold (s > r/2 -> r - s, signs
     flipped) as a word-wise compare and borrow chain;
-  * schedule and accumulate: the slab (msm/slab.py);
+  * schedule and accumulate: the slab (msm/slab.py, mode "auto" or
+    "slab") or the segmented tree (msm/tree.py, mode "tree");
   * integrate: per-window sum_b b * bucket[b] as grouped strip reductions
-    plus lg(C) doublings (pippenger.cuh:225-296, 627-665);
+    plus lg(C) doublings (pippenger.cuh:225-296, 627-665), shared by both;
   * to_affine: one batch inversion over the (nwins,) window sums;
   * collect: the doubling merge of the window sums on the host over exact
     ints (pippenger.cuh:667-727).
@@ -16,11 +17,13 @@ A G2 curve runs the same stages on (2 n32, ...) fp2 coordinates
 The point and field kernels are the stages' `kern` (ec/kernels.py).  The
 entry points (`MSMContext`, `mult_pippenger`) always use the kernels and
 run on the CUDA card unless given device="cpu"; `MSMSlabStages(...,
-kern=ec.kernels.PLAIN)` runs the same pipeline on the plain versions.
+kern=ec.kernels.PLAIN)` (or MSMTreeStages) runs the same pipeline on the
+plain versions.
 
-Each phase runs in a `torch.profiler.record_function` range named
-msm.schedule, msm.gather, msm.madd_rounds, msm.fold, msm.integrate or
-msm.to_affine, so a profile of a real invoke splits its time by phase.
+Each phase runs in a `torch.profiler.record_function` range: msm.schedule,
+msm.gather, then msm.madd_rounds and msm.fold (slab) or msm.tree_levels
+and msm.extract (tree), msm.integrate, msm.to_affine; so a profile of a
+real invoke splits its time by phase.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from ..oracle.msm import window_bits
 from ..params import get_curve
 from ..runtime.dev_ptr import DevPtr
 from ..runtime.devices import resolve
-from . import slab
+from . import slab, tree
 
 
 # -- scalar ingestion ----------------------------------------------------------------
@@ -118,12 +121,13 @@ def make_breakdown(curve_name: str, wbits: int, nwins: int, n_words: int):
 
 # -- stages --------------------------------------------------------------------------
 
-class MSMSlabStages:
-    """The slab pipeline's phases for one (curve, wbits): schedule,
-    accumulate, integrate, to_affine, each on `kern`'s point and field
-    functions."""
+class _Stages:
+    """What the accumulators share: the breakdown, the window grouping's
+    budget, the integrate and to_affine.  A subclass gives schedule(words)
+    and accumulate(sched, rows), which returns the bucket sums as xyzz
+    points, four (W, nwins, nbuckets) coordinates."""
 
-    #: live slab bytes per accumulate call (bounds the window grouping)
+    #: live slot bytes per accumulate call (bounds the window grouping)
     BUDGET = 3 << 30
 
     def __init__(self, curve_name: str, wbits: int, nwins: int,
@@ -136,37 +140,10 @@ class MSMSlabStages:
         self.ops = get_curve_ops(curve_name, kern.field)
         self.breakdown = make_breakdown(curve_name, wbits, nwins, n_words)
 
-    def plan(self, n: int):
-        """(cap, n_rows, wg): the slab's cap and rows per window, and the
-        windows per accumulate call.  A slab slot is one point-major row of
-        two coordinates: 2 n32 32-bit words, 4 n32 for G2."""
-        cap, n_rows = slab.plan_slab(n, self.nbuckets)
-        per_win = cap * n_rows * 2 * self.ops.F.words * 4
-        wg = max(1, min(self.nwins, self.BUDGET // per_win))
-        while self.nwins % wg:          # equal groups
-            wg -= 1
-        return cap, n_rows, wg
-
-    def schedule(self, words):
-        cap, n_rows, _ = self.plan(words.shape[1])
-        with record_function("msm.schedule"):
-            return slab.make_slab_schedule(self.breakdown, self.nbuckets,
-                                           cap, n_rows)(words)
-
-    def accumulate(self, sched, rows):
-        """Bucket sums (W, nwins, nbuckets) x 4 from the schedule and the
-        gather table (slab.point_rows), one window group at a time."""
-        sv, row_src, row_len, row_bucket, row_rank, first_row, stats = sched
-        cap, _, wg = self.plan(sv.shape[1])
-        stats = [int(v) for v in stats.tolist()]
-        outs = []
-        for lo in range(0, self.nwins, wg):
-            g = slice(lo, lo + wg)
-            outs.append(slab.accumulate(
-                self.curve_name, cap, sv[g], row_src[g], row_len[g],
-                row_bucket[g], row_rank[g], first_row[g], stats, rows,
-                self.kern))
-        return tuple(torch.cat(cs, dim=1) for cs in zip(*outs))
+    def _slot_bytes(self) -> int:
+        """One point-major slot: two coordinates of W 32-bit words (W =
+        n32, or 2 n32 for G2)."""
+        return 2 * self.ops.F.words * 4
 
     def integrate(self, bucket):
         with record_function("msm.integrate"):
@@ -214,6 +191,79 @@ class MSMSlabStages:
         return self.to_affine(self.window_sums(words, rows))
 
 
+class MSMSlabStages(_Stages):
+    """The slab pipeline's phases for one (curve, wbits): schedule,
+    accumulate, integrate, to_affine, each on `kern`'s point and field
+    functions."""
+
+    def plan(self, n: int):
+        """(cap, n_rows, wg): the slab's cap and rows per window, and the
+        windows per accumulate call (equal groups)."""
+        cap, n_rows = slab.plan_slab(n, self.nbuckets)
+        per_win = cap * n_rows * self._slot_bytes()
+        wg = max(1, min(self.nwins, self.BUDGET // per_win))
+        while self.nwins % wg:          # equal groups
+            wg -= 1
+        return cap, n_rows, wg
+
+    def schedule(self, words):
+        cap, n_rows, _ = self.plan(words.shape[1])
+        with record_function("msm.schedule"):
+            return slab.make_slab_schedule(self.breakdown, self.nbuckets,
+                                           cap, n_rows)(words)
+
+    def accumulate(self, sched, rows):
+        """Bucket sums (W, nwins, nbuckets) x 4 from the schedule and the
+        gather table (slab.point_rows), one window group at a time."""
+        sv, row_src, row_len, row_bucket, row_rank, first_row, stats = sched
+        cap, _, wg = self.plan(sv.shape[1])
+        stats = [int(v) for v in stats.tolist()]
+        outs = []
+        for lo in range(0, self.nwins, wg):
+            g = slice(lo, lo + wg)
+            outs.append(slab.accumulate(
+                self.curve_name, cap, sv[g], row_src[g], row_len[g],
+                row_bucket[g], row_rank[g], first_row[g], stats, rows,
+                self.kern))
+        return tuple(torch.cat(cs, dim=1) for cs in zip(*outs))
+
+
+class MSMTreeStages(_Stages):
+    """The segmented-tree pipeline's phases (msm/tree.py; the port of the
+    JAX package's MSMTreeStages): its slot count m0 and depth lmax come
+    from the schedule's bucket histogram, read on the host."""
+
+    def plan(self, stats):
+        """(m0, lmax, wg) from the schedule's stats: the windows per
+        accumulate call keep the ~3 m0 slots of level 0, level 1 and the
+        inversion's tree under BUDGET."""
+        m0, lmax = tree.plan_layout([int(v) for v in stats.tolist()])
+        per_win = 3 * m0 * self._slot_bytes()
+        return m0, lmax, max(1, min(self.nwins, self.BUDGET // per_win))
+
+    def schedule(self, words):
+        with record_function("msm.schedule"):
+            return tree.make_tree_schedule(self.breakdown,
+                                           self.nbuckets)(words)
+
+    def accumulate(self, sched, rows):
+        """Bucket sums (W, nwins, nbuckets) x 4 (xyzz) from the schedule
+        and the gather table, one window group at a time."""
+        m0, lmax, wg = self.plan(sched[-1])
+        outs = []
+        for lo in range(0, self.nwins, wg):
+            g = slice(lo, lo + wg)
+            outs.append(tree.accumulate(self.curve_name, m0, lmax,
+                                        *(a[g] for a in sched[:-1]), rows,
+                                        self.kern))
+        aff = tuple(torch.cat(cs, dim=1) for cs in zip(*outs))
+        return self.ops.affine_to_xyzz(aff)
+
+
+_STAGES = {"auto": MSMSlabStages, "slab": MSMSlabStages,
+           "tree": MSMTreeStages}
+
+
 def collect(curve, wbits: int, nwins: int, wx, wy) -> AffinePoint:
     """Host window merge: MSB-first doubling merge of the per-window affine
     sums (collect(), pippenger.cuh:667-727) over exact ints.  An empty
@@ -252,6 +302,8 @@ class MSMContext:
     window policy and the stages, and optionally a device-resident point
     set reused across invocations (pippenger.cuh:377-383, 582-601).
 
+    `mode` picks the accumulator: "auto" or "slab" (msm/slab.py) or
+    "tree" (msm/tree.py); both give the same point.
     `chunk` sizes the window policy and the stages to a chunk of points;
     longer inputs run chunk by chunk, and the chunks' window sums combine
     with one xyzz add each (pippenger.cuh:454-459, 496-556).  Points given
@@ -259,10 +311,11 @@ class MSMContext:
 
     def __init__(self, curve, npoints: int, wbits: int = 0,
                  mode: str = "auto", chunk: int = 0, device=None):
-        if mode not in ("auto", "slab"):
+        if mode not in _STAGES:
             raise NotImplementedError(
-                f"MSM mode {mode!r} is not ported: only the slab "
-                f"accumulator is (ROADMAP.md, Queue 1: msm/tree.py)")
+                f"MSM mode {mode!r} is not ported: only the slab and tree "
+                f"accumulators are (ROADMAP.md, Queue 1: "
+                f"msm/batch_addition.py)")
         self.curve = get_curve(curve) if isinstance(curve, str) else curve
         self.device = resolve(device)
         self.ops = get_curve_ops(self.curve.name)
@@ -273,8 +326,8 @@ class MSMContext:
         self.nwins = (sf.bits + self.wbits - 1) // self.wbits
         self.nbuckets = 1 << (self.wbits - 1)
         self.n_words = (sf.bits + 31) // 32
-        self.stages = MSMSlabStages(self.curve.name, self.wbits, self.nwins,
-                                    self.n_words)
+        self.stages = _STAGES[mode](self.curve.name, self.wbits,
+                                    self.nwins, self.n_words)
         #: the resident points, kept only where no gather table is built
         #: (chunked or host-streamed points)
         self._points = None

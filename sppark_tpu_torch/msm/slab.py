@@ -29,7 +29,7 @@ from ..ec.kernels import KERNELS, Kernels
 from ..ff.bigmont import BigMontField
 from ..ff.ext import Fp2Field
 
-_IDX_MASK = 0x7FFFFFFF
+IDX_MASK = 0x7FFFFFFF
 
 
 def plan_slab(n: int, nbuckets: int) -> tuple:
@@ -41,9 +41,10 @@ def plan_slab(n: int, nbuckets: int) -> tuple:
     return cap, nbuckets + (n + cap - 1) // cap
 
 
-def _spread(vals, at, length: int):
+def spread(vals, at, length: int):
     """Per-slot copy of per-bucket `vals` (W, B) whose bucket starts at slot
-    `at[w, b]` (strictly ascending): a scatter of the differences between
+    `at[w, b]` (strictly ascending; the slab's rows, the tree's padded
+    runs): a scatter of the differences between
     neighbours, then a cumulative sum.  The differences may be negative;
     the sum restores the values (the JAX package's u32 form relies on
     wrap-around instead)."""
@@ -83,12 +84,12 @@ def make_slab_schedule(breakdown, nbuckets: int, cap: int, n_rows: int):
         occ, base = counts[:, 1:], starts[:, 1:]
         rows_b = torch.clamp((occ + cap - 1) // cap, min=1)
         first = torch.cumsum(rows_b, dim=1) - rows_b
-        bid = _spread(torch.arange(nbuckets, dtype=torch.int64,
-                                   device=dev).expand(W, -1), first, n_rows)
+        bid = spread(torch.arange(nbuckets, dtype=torch.int64,
+                                  device=dev).expand(W, -1), first, n_rows)
         rank = (torch.arange(n_rows, dtype=torch.int64, device=dev)[None]
-                - _spread(first, first, n_rows))
-        src = _spread(base, first, n_rows) + rank * cap
-        length = torch.clamp(_spread(occ, first, n_rows) - rank * cap,
+                - spread(first, first, n_rows))
+        src = spread(base, first, n_rows) + rank * cap
+        length = torch.clamp(spread(occ, first, n_rows) - rank * cap,
                              0, cap)
         stats = torch.stack([length.max(), rows_b.max()])
         return sorted_val, src, length, bid, rank, first, stats
@@ -118,7 +119,7 @@ def materialize(sorted_val, row_src, row_len, cap: int, rows):
     payload = torch.gather(sorted_val, 1, src.reshape(wg, cap * S))
     payload = payload.reshape(wg, cap, S).transpose(0, 1)
     valid = r[:, None, None] < row_len[None]
-    gidx = torch.where(valid, (payload & _IDX_MASK) + n * (payload >> 31),
+    gidx = torch.where(valid, (payload & IDX_MASK) + n * (payload >> 31),
                        2 * n)
     return rows.index_select(0, gidx.reshape(-1)).reshape(
         cap, wg * S, rows.shape[1])

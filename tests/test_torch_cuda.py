@@ -250,7 +250,7 @@ def test_point_kernels_vs_plain(dev, curve):
 
 def test_msm_on_card(dev):
     """test_bm64 MSM 2^10 through the entry point against msm_naive, every
-    MSM kernel launched."""
+    kernel of the slab MSM launched."""
     import random
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
@@ -268,7 +268,9 @@ def test_msm_on_card(dev):
     EK.reset_launches()
     FK.reset_launches()
     assert mult_pippenger("test_bm64", pts, sc) == msm_naive(cp, pts, sc)
-    assert all(v > 0 for v in {**EK.launches, **FK.launches}.values())
+    assert all(EK.launches[EK.kernel_name(op, "test_bm64")] > 0
+               for op in EK.SLAB_OPS)
+    assert FK.launches["bigmont_ew"] > 0
 
 
 # -- the G2 (fp2) point kernels ----------------------------------------------------
@@ -298,15 +300,16 @@ def test_fp2_point_kernels_vs_plain(dev, curve):
         torch.cuda.synchronize()
         assert all(torch.equal(u, v) for u, v in zip(got, want))
     assert {k: v - before[k] for k, v in EK.fp2_launches.items()} == {
-        "ec_fp2_xyzz_madd": 2, "ec_fp2_xyzz_add": 1, "ec_fp2_xyzz_dbl": 1}
+        "ec_fp2_xyzz_madd": 2, "ec_fp2_xyzz_add": 1, "ec_fp2_xyzz_dbl": 1,
+        "ec_fp2_pair_prep": 0, "ec_fp2_pair_finish": 0}
 
 
 @pytest.mark.parametrize("curve,n", [("test_bm64_g2", 1 << 10),
                                      ("bls12_381_g2", 64)])
 def test_g2_msm_on_card(dev, curve, n):
     """A G2 MSM through the entry point against msm_naive, with infinity,
-    zero, r - 1 and a doubling term planted; every fp2 kernel and the
-    Montgomery multiply launched."""
+    zero, r - 1 and a doubling term planted; every fp2 kernel of the slab
+    MSM and the Montgomery multiply launched."""
     import random
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
@@ -326,5 +329,114 @@ def test_g2_msm_on_card(dev, curve, n):
     EK.reset_launches()
     FK.reset_launches()
     assert mult_pippenger(curve, pts, sc) == msm_naive(cp, pts, sc)
-    assert all(v > 0 for v in EK.fp2_launches.values())
+    assert all(EK.fp2_launches[EK.kernel_name(op, curve)] > 0
+               for op in EK.SLAB_OPS)
     assert FK.launches["bigmont_ew"] > 0
+
+
+# -- the batch-affine pair kernels and the tree MSM ------------------------------
+
+def _pair_cases(curve, n, dev):
+    """Affine l, r over n >= 96 lanes.  Lanes 0..31 (a warp) hold generic
+    pairs, no doubling; in the second warp lane 33 doubles, 34 cancels, 35
+    has l at infinity, 36 r, 37 both, 38 doubles a y == 0 point (not on
+    the curve: the toinf case); lanes 64..95 all double."""
+    import random
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.oracle.ec import get_oracle
+
+    o = get_oracle(params.get_curve(curve))
+    rng = random.Random(12)
+    pool = [o.random_point(rng) for _ in range(8)]
+    j = [rng.randrange(8) for _ in range(n)]
+    L = [pool[k] for k in j]
+    R = [pool[(k + 1 + rng.randrange(7)) % 8] for k in j]
+    R[33] = L[33]
+    R[34] = o.affine_neg(L[34])
+    L[35] = L[37] = R[36] = R[37] = o.infinity_affine()
+    R[64:96] = L[64:96]
+    ops = get_curve_ops(curve, FK.PLAIN)
+    l, r = ops.affine_from_ints(L, dev), ops.affine_from_ints(R, dev)
+    l[1][:, 38] = r[1][:, 38] = 0
+    r[0][:, 38] = l[0][:, 38]
+    return l, r
+
+
+@pytest.mark.parametrize("curve", MSM_CURVES + G2_CURVES)
+def test_pair_kernels_vs_plain(dev, curve):
+    """ec_[fp2_]pair_prep and _finish against their plain versions with the
+    planted lanes and warps, on limb-major operands and on the even and
+    odd views that a tree level reads: point-major rows (level 0) and
+    every other lane of a limb-major level."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm.tree import batch_inv_flat
+
+    l, r = _pair_cases(curve, 128, dev)
+    W, n = l[0].shape
+    den, flags = EK.affine_pair_prep_plain(curve, l, r)
+    inv = batch_inv_flat(get_curve_ops(curve, FK.PLAIN).F, den)
+    want = EK.affine_pair_finish_plain(curve, l, r, inv, flags)
+    rows = torch.stack([torch.cat(l).T, torch.cat(r).T], 1).reshape(2 * n,
+                                                                  2 * W)
+    X = torch.stack([l[0], r[0]], -1).reshape(W, 2 * n)
+    Y = torch.stack([l[1], r[1]], -1).reshape(W, 2 * n)
+    views = [(l, r),
+             ((rows[0::2, :W].T, rows[0::2, W:].T),
+              (rows[1::2, :W].T, rows[1::2, W:].T)),
+             ((X[:, 0::2], Y[:, 0::2]), (X[:, 1::2], Y[:, 1::2]))]
+    name = EK.kernel_name("pair_prep", curve)
+    counts = EK.launches if name in EK.launches else EK.fp2_launches
+    before = counts[name]
+    for lv, rv in views:
+        for k in (slice(0, 32), slice(32, 64), slice(64, 96), slice(0, n)):
+            lk, rk = tuple(c[:, k] for c in lv), tuple(c[:, k] for c in rv)
+            got = EK.affine_pair_prep(curve, lk, rk)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], den[:, k])
+            assert torch.equal(got[1], flags[k])
+            got = EK.affine_pair_finish(curve, lk, rk, inv[:, k], flags[k])
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w[:, k]) for g, w in zip(got, want))
+    assert counts[name] == before + 12
+    assert sorted(set(flags.tolist())) == [0, 1, 3, 4, 8]
+
+
+@pytest.mark.parametrize("curve,n", [("bls12_381", 1 << 10),
+                                     ("bls12_381_g2", 1 << 8)])
+def test_tree_msm_on_card(dev, curve, n):
+    """mode="tree" through the entry point equals the slab MSM and
+    msm_naive on the same input (all-equal scalars too); the pair kernels,
+    the integrate's add and dbl and the Montgomery multiply launched."""
+    import random
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import MSMContext
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.oracle.msm import msm_naive
+
+    cp = params.get_curve(curve)
+    o = get_oracle(cp)
+    rng = random.Random(7)
+    base = [o.random_point(rng) for _ in range(8)]
+    pts = [base[i % 8] for i in range(n)]
+    pts[3] = o.infinity_affine()
+    r = cp.scalar.modulus
+    sc = [rng.randrange(r) for _ in range(n)]
+    sc[0], sc[1], sc[4], sc[12] = 0, r - 1, 5, 5
+    tree = MSMContext(curve, n, mode="tree")
+    tree.set_points(pts)
+    EK.reset_launches()
+    FK.reset_launches()
+    got = tree.invoke(sc)
+    counts = {k: v for k, v in {**EK.launches, **EK.fp2_launches}.items()
+              if v}
+    assert got == MSMContext(curve, n).invoke(sc, points=pts)
+    assert got == msm_naive(cp, pts, sc)
+    assert sorted(counts) == sorted(EK.kernel_name(op, curve)
+                                    for op in EK.TREE_OPS)
+    assert FK.launches["bigmont_ew"] > 0
+    k = rng.randrange(r)
+    assert tree.invoke([k] * n) == msm_naive(cp, pts, [k] * n)

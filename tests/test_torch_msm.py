@@ -147,10 +147,11 @@ def test_msm_wide_curves_vs_oracle(curve):
 
 
 def test_msm_modes_and_no_silent_cpu():
-    """Only the slab accumulator is ported; with no device given, the
-    entry points run on the card and raise where there is none."""
-    with pytest.raises(NotImplementedError, match="tree"):
-        MSMContext(CURVE, 8, mode="tree", device="cpu")
+    """Only the slab and tree accumulators are ported; with no device
+    given, the entry points run on the card and raise where there is
+    none."""
+    with pytest.raises(NotImplementedError, match="xyzz"):
+        MSMContext(CURVE, 8, mode="xyzz", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SpparkError):
