@@ -62,8 +62,8 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      index 3, seeded scalar words; checks it against the exact result
      (sum_j c_j r_j mod r) G over all 2^23 terms, the chunked invoke, and
      at 2^8 `msm_naive` with planted scalars, Montgomery-form scalars and
-     the plain path on the card; BN254 and BLS12-377 G2 MSMs of 64 points
-     against `msm_naive`;
+     the plain path on the card; BN254 and BLS12-377 G2 MSMs and a
+     BLS12-377 G1 MSM of 64 points against `msm_naive`;
  16. times the G2 MSM, profiles one invoke (peak memory, busy share,
      phases) and times each fp2 kernel alone at its main-path shapes
      beside its plain version and its bound, and prints the G2 phases'
@@ -83,14 +83,40 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
  19. times both tree MSMs, profiles each invoke (peak memory, busy share,
      phases, kernels) and times each pair kernel alone at its level-1
      shape beside its plain version and its bound;
- 20. prints one JSON line of the kernels, the card's name and power limit,
-     and last {"ok": true, "device": {...}}.
+ 20. holds the mont32 NTT kernels (mont32_ntt_rows, mont32_ntt_cols)
+     against their plain versions on BabyBear with both generators, every
+     option, canonical words with 0, 1 and p - 1 planted, and at the shapes
+     the narrow main paths give them (the four-step at 2^20 and 2^24, the
+     six-step at 2^26), exactly;
+ 21. drives BASELINE config 1, a BabyBear forward and inverse NTT of 2^20
+     through the host-array entry points `ntt.ntt` / `ntt.intt`, for both
+     generators, with the launch counts set to 0 just before and read just
+     after; checks the plain path on the card, the round trip, the
+     big-int oracle at lg 1, 12 and 14 and the 16 configurations at lg 10
+     and 16;
+ 22. drives a BabyBear forward NTT of 2^24 through `ntt.base_dev` (the
+     four-step): the round trip and three outputs against sum_i x_i
+     w^(ik) evaluated on the card;
+ 23. drives the BabyBear coset LDE 2^24 x 4 (`lde_dev`, the six-step at
+     lg 26): the plain path on the card, the inverse coset round trip and
+     the oracle at 2^10 x 2;
+ 24. drives the batched trace LDE, a (64, 2^20) batch of BabyBear columns
+     x 4 (`lde_dev` on a 2-D tensor, 1 GiB out): two columns against the
+     single-column LDE and the plain path;
+ 25. times config 1's pair, the NTT 2^24 (dependent chain), the LDE and
+     the trace LDE with their parts, and each mont32 kernel alone at its 2^24
+     shapes beside its plain version and its bound, and prints the narrow
+     phases' seconds;
+ 26. prints one JSON line of the numbers, one of the kernels, the run's
+     seconds, the card's name and power limit, and last {"ok": true,
+     "device": {...}}.
 Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
 integer operations over the card's INT32 rate (SMs x 64 lanes x the
 maximum SM clock, read from nvidia-smi); a wide butterfly counts one
 Montgomery product (4 n32^2) and an add and a sub (2 n32 each); an fp2
 product 3 products and its additions, an fp2 squaring 2 squarings, a
-product and its additions (fp2_ops).
+product and its additions (fp2_ops); a mont32 butterfly 14 operations
+counted from csrc/ntt_mont32.cu.
 Any failed check raises, so the run exits non-zero and prints no last line.
 It exits non-zero at once without a CUDA device or without the package.
 """
@@ -822,7 +848,7 @@ def eval_at(F, x, z, dev):
     del pw
     while t.shape[-1] > 1:
         h = t.shape[-1] // 2
-        t = F.add(t[:, :h], t[:, h:])
+        t = F.add(t[..., :h], t[..., h:])
     return F.to_int_list(t)[0]
 
 
@@ -1148,7 +1174,8 @@ def wide_phases(dev, card, rate):
 G2_CURVE, G2_LG = "bls12_381_g2", 23   # the reference bench's G2 default
 G2_KERNEL_CURVES = ("test_bm64_g2", "bn254_g2", "bls12_381_g2",
                     "bls12_377_g2")    # nonresidues 7, -1, -1, -5
-G2_SMALL_CURVES = ("bn254_g2", "bls12_377_g2")
+# 64-point MSMs against msm_naive: two G2 curves and the BLS12-377 G1
+G2_SMALL_CURVES = ("bn254_g2", "bls12_377_g2", "bls12_377")
 LG_SMALL_G2 = 8     # msm_naive, Montgomery scalars and the plain path
 G2_TABLE_BITS = 8   # the fixed-base table that draws the base points
 
@@ -1285,7 +1312,7 @@ def g2_phases(dev, card, rate):
         check(MSMContext(curve, 64).invoke(sc, points=pts)
               == msm_naive(scp, pts, sc),
               f"MSM {curve} 64 == msm_naive (0, r-1, doubling terms)")
-    seconds["15 bn254_g2, bls12_377_g2"] = time.perf_counter() - t0
+    seconds["15 " + ", ".join(G2_SMALL_CURVES)] = time.perf_counter() - t0
 
     # -- 16. times ----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1520,9 +1547,442 @@ def tree_phases(dev, card, rate, g1, g2):
     return entries, numbers, {**launches, **launches2}
 
 
+# -- narrow-field NTT phases (20-25) ------------------------------------------------
+
+NARROW_FIELD = "baby_bear"          # BASELINE config 1
+NARROW_FIELDS = ("baby_bear", "baby_bear_risc0")
+NARROW_CONFIG_LG = 20               # config 1: forward + inverse 2^20
+NARROW_LG, NARROW_BLOWUP = 24, 2    # the NTT 2^24 and the LDE 2^24 x 4
+TRACE_COLS, TRACE_LG = 64, 20       # a STARK prover's trace LDE, x 4
+NARROW_ROW_LGS = (1, 5, 10, 13)     # phase 20's row lengths,
+NARROW_COL_LGS = (1, 6, 11)         # column lengths
+NARROW_COL_COUNTS = (8, 8192)       # and column counts
+NARROW_ORDER_LGS = (10, 16)         # the 16 configurations: one pass, four-step
+NARROW_ORACLE_LGS = (1, 12, 14)     # the big-int oracle
+# 32-bit integer operations counted from csrc/ntt_mont32.cu: a butterfly is
+# a Montgomery product (the low and high products of a and b, the low
+# product lo * M0, the high product of m and p, the carry test, a three-way
+# add, a subtract, a min: 9) and an add and a sub (three each); an extra
+# product is the product alone
+OPS_PER_BUTTERFLY_MONT32 = 15
+OPS_PER_MUL_MONT32 = 9
+WORD32 = 4
+
+
+def narrow_words(field, rng, dev, *shape, planted=True):
+    """Canonical u32 Montgomery words of a 31-bit field as int32; with
+    `planted`, 0, 1 and p - 1 in the first lanes and p - 1 in a whole
+    warp's lanes (32-63)."""
+    import torch
+    from sppark_tpu_torch.params import get_field
+    fp = get_field(field)
+    w = rng.integers(0, fp.modulus, size=shape, dtype=np.int64)
+    if planted:
+        flat = w.reshape(-1)
+        flat[:3] = [0, fp.one_mont, fp.modulus - 1][:flat.size]
+        flat[32:64] = fp.modulus - 1
+    return torch.from_numpy(w.astype(np.int32)).to(dev)
+
+
+def narrow_phases(dev, card, rate):
+    """Phases 20-25.  Returns (the mont32 kernels' entries of the summary
+    line, the phases' numbers)."""
+    import torch
+    from sppark_tpu_torch import ntt
+    from sppark_tpu_torch.ff.mont32 import get_mont32_ops
+    from sppark_tpu_torch.ntt import fused, kernels as K
+    from sppark_tpu_torch.ntt.parameters import get_parameters
+    from sppark_tpu_torch.oracle import ntt as oracle
+    from sppark_tpu_torch.params import get_field
+
+    errs = dict.fromkeys(K.narrow_launches, 0)
+    seconds = {}
+
+    def agree(name, pairs, what):
+        """Every (kernel, plain) pair equal, word for word; one line."""
+        torch.cuda.synchronize()
+        for k, (got, want) in enumerate(pairs):
+            e = word_err((got,), (want,))
+            errs[name] = max(errs[name], e)
+            if e:
+                raise RuntimeError(f"check failed: {name} == plain: {what} "
+                                   f"(case {k}, max word error {e})")
+        print(f"ok  {name} == plain: {what} ({len(pairs)} cases)",
+              flush=True)
+
+    def launched(what):
+        counts = dict(K.narrow_launches)
+        print(f"main path {what} launches: {counts}", flush=True)
+        check(all(v > 0 for v in counts.values()),
+              f"{what} went through both mont32 kernels")
+        return counts
+
+    rng = np.random.default_rng(7)
+
+    # -- 20. kernels vs plain: every option, both generators, edge words ------
+    t0 = time.perf_counter()
+    for field in NARROW_FIELDS:
+        pm = get_parameters(field, dev)
+        for lg in NARROW_ROW_LGS:
+            tw = pm.power_table(lg, False)
+            pairs = []
+            for shape in ((1, 1 << lg), (16, 1 << lg), (3, 16, 1 << lg)):
+                x = narrow_words(field, rng, dev, *shape)
+                mul = narrow_words(field, rng, dev, *shape)
+                for in_rev in (False, True):
+                    for out_rev in (False, True):
+                        for out_t in (False, True):
+                            for m in ((None,) if out_rev else (None, mul)):
+                                a = (x, tw, lg, m, in_rev, out_rev, out_t)
+                                pairs.append((K.mont32_rows(field, *a),
+                                              K.mont32_rows_plain(field, *a)))
+            agree("mont32_ntt_rows", pairs, f"{field} lg {lg}, (1, n), "
+                  f"(16, n), (3, 16, n), every option")
+        for lg1 in NARROW_COL_LGS:
+            tw = pm.power_table(lg1, True)
+            pairs = []
+            for m_cols in NARROW_COL_COUNTS:
+                mid = narrow_words(field, rng, dev, 1 << lg1, m_cols)
+                for batch in ((), (3,)):
+                    x = narrow_words(field, rng, dev, *batch, 1 << lg1,
+                                     m_cols)
+                    for m in (None, mid):
+                        pairs.append((K.mont32_cols(field, x, tw, lg1, m),
+                                      K.mont32_cols_plain(field, x, tw, lg1,
+                                                          m)))
+            agree("mont32_ntt_cols", pairs, f"{field} lg1 {lg1}, M in "
+                  f"{NARROW_COL_COUNTS}, batch, middle matrix")
+    # the shapes the main paths give the kernels: the four-step at 2^20
+    # and 2^24, forward and inverse tables, and the six-step at 2^26
+    for lg, inverse in ((NARROW_CONFIG_LG, False), (NARROW_CONFIG_LG, True),
+                        (NARROW_LG, False), (NARROW_LG, True),
+                        (NARROW_LG + NARROW_BLOWUP, False)):
+        tables = fused.fused_tables(NARROW_FIELD, lg, inverse, dev)
+        lg1 = fused.split_lg1(lg, NARROW_FIELD)
+        lg2 = lg - lg1
+        x = narrow_words(NARROW_FIELD, rng, dev, 1 << lg1, 1 << lg2)
+        agree("mont32_ntt_cols", [
+            (K.mont32_cols(NARROW_FIELD, x, tables[0], lg1, tables[1]),
+             K.mont32_cols_plain(NARROW_FIELD, x, tables[0], lg1,
+                                 tables[1]))],
+            f"main-path cols lg {lg} inverse={inverse} {tuple(x.shape)}")
+        if lg2 <= fused.LG_TILE:
+            agree("mont32_ntt_rows", [
+                (K.mont32_rows(NARROW_FIELD, x, tables[2], lg2, out_t=True),
+                 K.mont32_rows_plain(NARROW_FIELD, x, tables[2], lg2,
+                                     out_t=True))],
+                f"main-path rows lg {lg} inverse={inverse} out_t")
+            continue
+        lg21 = fused.split_lg1(lg2, NARROW_FIELD)
+        xb = narrow_words(NARROW_FIELD, rng, dev, 1 << lg1, 1 << lg21,
+                          1 << (lg2 - lg21))
+        agree("mont32_ntt_cols", [
+            (K.mont32_cols(NARROW_FIELD, xb, tables[2], lg21, tables[3]),
+             K.mont32_cols_plain(NARROW_FIELD, xb, tables[2], lg21,
+                                 tables[3]))],
+            f"main-path six-step cols lg {lg} batch {tuple(xb.shape)}")
+        agree("mont32_ntt_rows", [
+            (K.mont32_rows(NARROW_FIELD, xb, tables[4], lg2 - lg21,
+                           out_t=True),
+             K.mont32_rows_plain(NARROW_FIELD, xb, tables[4], lg2 - lg21,
+                                 out_t=True))],
+            f"main-path six-step rows lg {lg} batch {tuple(xb.shape)}")
+    # the trace LDE's shapes (phase 24): the inverse at 2^TRACE_LG and the
+    # forward at 2^(TRACE_LG + blowup), each a four-step over all
+    # TRACE_COLS columns with its own tables; the row pass takes the
+    # column kernel's output, as the main path gives it
+    for lg, inverse in ((TRACE_LG, True), (TRACE_LG + NARROW_BLOWUP, False)):
+        tables = fused.fused_tables(NARROW_FIELD, lg, inverse, dev)
+        lg1 = fused.split_lg1(lg, NARROW_FIELD)
+        lg2 = lg - lg1
+        check(lg2 <= fused.LG_TILE, f"trace LDE's 2^{lg} is a four-step")
+        x = narrow_words(NARROW_FIELD, rng, dev, TRACE_COLS, 1 << lg1,
+                         1 << lg2)
+        c = K.mont32_cols(NARROW_FIELD, x, tables[0], lg1, tables[1])
+        agree("mont32_ntt_cols", [
+            (c, K.mont32_cols_plain(NARROW_FIELD, x, tables[0], lg1,
+                                    tables[1]))],
+            f"trace-LDE cols lg {lg} inverse={inverse} {tuple(x.shape)}")
+        del x
+        agree("mont32_ntt_rows", [
+            (K.mont32_rows(NARROW_FIELD, c, tables[2], lg2, out_t=True),
+             K.mont32_rows_plain(NARROW_FIELD, c, tables[2], lg2,
+                                 out_t=True))],
+            f"trace-LDE rows lg {lg} inverse={inverse} {tuple(c.shape)} "
+            f"out_t")
+        del c
+    del xb, mul, mid
+    seconds["20 kernels vs plain"] = time.perf_counter() - t0
+
+    # -- 21. BASELINE config 1: BabyBear NTT 2^20 forward and inverse ----------
+    t0 = time.perf_counter()
+    main_rng = np.random.default_rng(2024)
+    config1 = {}
+    for field in NARROW_FIELDS:
+        F = get_mont32_ops(field)
+        fp = get_field(field)
+        lg = NARROW_CONFIG_LG
+        wire = main_rng.integers(0, fp.modulus, size=1 << lg,
+                                 dtype=np.int64).astype(np.uint32)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        fwd_wire = ntt.ntt(field, wire, lg)
+        back_wire = ntt.intt(field, fwd_wire, lg)
+        config1[field] = launched(f"{field} NTT 2^{lg} forward + inverse "
+                                  f"(ntt.ntt, ntt.intt)")
+        check(fwd_wire.dtype == np.uint32 and fwd_wire.shape == wire.shape,
+              f"{field} ntt.ntt 2^{lg} gives {fwd_wire.shape} u32 words")
+        check(np.array_equal(back_wire, wire),
+              f"{field} intt(ntt(x)) == x at 2^{lg}")
+        x = F.from_wire_np(wire, dev)
+        y = F.from_wire_np(fwd_wire, dev)
+        check(torch.equal(y, fused.facade(field, x, lg, kern=K.PLAIN)),
+              f"{field} NTT 2^{lg} == plain path on the card")
+        check(torch.equal(F.from_wire_np(back_wire, dev),
+                          fused.facade(field, y, lg, inverse=True,
+                                       kern=K.PLAIN)),
+              f"{field} iNTT 2^{lg} == plain path on the card")
+        if field != NARROW_FIELD:
+            continue
+        config1_x = x
+        for lg_o in NARROW_ORACLE_LGS:
+            ints = F.to_int_list(x[:1 << lg_o])
+            got = ntt.base_dev(field, x[:1 << lg_o].contiguous(), lg_o)
+            check(F.to_int_list(got) == oracle.ntt_natural(fp, ints),
+                  f"{field} NTT 2^{lg_o} == big-int oracle")
+            back = ntt.base_dev(field, got, lg_o,
+                                direction=ntt.Direction.inverse)
+            check(F.to_int_list(back) == ints,
+                  f"{field} intt round trip 2^{lg_o}")
+        for lg_o in NARROW_ORDER_LGS:
+            xs = narrow_words(field, main_rng, dev, 1 << lg_o)
+            for order in ntt.InputOutputOrder:
+                for inverse in (False, True):
+                    for coset in (False, True):
+                        got = ntt.base_dev(field, xs, lg_o, order,
+                                           ntt.Direction(int(inverse)),
+                                           ntt.Type(int(coset)))
+                        want = fused.facade(field, xs, lg_o, order.value,
+                                            inverse, coset, kern=K.PLAIN)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, want),
+                              f"{field} 2^{lg_o} {order.value} "
+                              f"inverse={inverse} coset={coset} == plain "
+                              f"path")
+    seconds["21 config 1"] = time.perf_counter() - t0
+
+    # -- 22. BabyBear forward NTT 2^24 on device words (the four-step) ---------
+    t0 = time.perf_counter()
+    F = get_mont32_ops(NARROW_FIELD)
+    fp = get_field(NARROW_FIELD)
+    n = 1 << NARROW_LG
+    x = narrow_words(NARROW_FIELD, main_rng, dev, n, planted=False)
+    fused.fused_tables(NARROW_FIELD, NARROW_LG, False, dev)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    y = ntt.base_dev(NARROW_FIELD, x, NARROW_LG)
+    torch.cuda.synchronize()
+    ntt_launches = launched(f"NTT {NARROW_FIELD} 2^{NARROW_LG} (base_dev)")
+    back = ntt.base_dev(NARROW_FIELD, y, NARROW_LG,
+                        direction=ntt.Direction.inverse)
+    check(torch.equal(back, x), f"intt(ntt(x)) == x at 2^{NARROW_LG}")
+    del back
+    w = fp.root_of_unity(NARROW_LG)
+    for k in (int(v) for v in main_rng.integers(0, n, size=3)):
+        got = F.to_int_list(y[k:k + 1])[0]
+        check(got == eval_at(F, x, pow(w, k, fp.modulus), dev),
+              f"NTT 2^{NARROW_LG} output {k} == sum_i x_i w^(ik) on the card")
+    seconds["22 NTT 2^24"] = time.perf_counter() - t0
+
+    # -- 23. BabyBear coset LDE 2^24 x 4 (the six-step at lg 26) ----------------
+    t0 = time.perf_counter()
+    lg, lg_ext = NARROW_LG, NARROW_LG + NARROW_BLOWUP
+    torch.cuda.synchronize()
+    K.reset_launches()
+    ext = ntt.lde_dev(NARROW_FIELD, x, lg, NARROW_BLOWUP)
+    torch.cuda.synchronize()
+    lde_launches = launched(f"LDE {NARROW_FIELD} 2^{lg} x"
+                            f"{1 << NARROW_BLOWUP} (lde_dev)")
+    check(torch.equal(ext, fused.lde(NARROW_FIELD, x, lg, NARROW_BLOWUP,
+                                     kern=K.PLAIN)),
+          f"LDE 2^{lg} x{1 << NARROW_BLOWUP} == plain path on the card")
+    inv = ntt.base_dev(NARROW_FIELD, ext, lg_ext,
+                       direction=ntt.Direction.inverse,
+                       ntt_type=ntt.Type.coset)
+    check(bool((inv[n:] == 0).all()), f"LDE: coefficients above 2^{lg} "
+                                      f"are 0")
+    check(torch.equal(ntt.base_dev(NARROW_FIELD, inv[:n].contiguous(), lg),
+                      x), "LDE: inverse coset transform gives back x")
+    del inv, ext
+    ints = F.to_int_list(x[:1 << 10])
+    got = ntt.lde_dev(NARROW_FIELD, x[:1 << 10].contiguous(), 10, 1)
+    check(F.to_int_list(got) == oracle.lde(fp, ints, 1),
+          "LDE 2^10 x2 == big-int oracle")
+    seconds["23 LDE 2^24"] = time.perf_counter() - t0
+
+    # -- 24. the batched trace LDE: (64, 2^20) columns x 4 ----------------------
+    t0 = time.perf_counter()
+    trace = narrow_words(NARROW_FIELD, main_rng, dev, TRACE_COLS,
+                         1 << TRACE_LG, planted=False)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    text = ntt.lde_dev(NARROW_FIELD, trace, TRACE_LG, NARROW_BLOWUP)
+    torch.cuda.synchronize()
+    trace_launches = launched(f"trace LDE {NARROW_FIELD} ({TRACE_COLS}, "
+                              f"2^{TRACE_LG}) x{1 << NARROW_BLOWUP}")
+    check(text.shape == (TRACE_COLS, 1 << (TRACE_LG + NARROW_BLOWUP)),
+          f"trace LDE gives {tuple(text.shape)} words "
+          f"({text.numel() * 4 / 2**30:.2f} GiB)")
+    cols = [0, TRACE_COLS - 1]
+    for c in cols:
+        check(torch.equal(text[c], ntt.lde_dev(NARROW_FIELD, trace[c],
+                                               TRACE_LG, NARROW_BLOWUP)),
+              f"trace LDE column {c} == the single-column LDE")
+    check(torch.equal(text, fused.lde(NARROW_FIELD, trace, TRACE_LG,
+                                      NARROW_BLOWUP, kern=K.PLAIN)),
+          f"trace LDE, all {TRACE_COLS} columns, == plain path on the card")
+    del text
+    seconds["24 trace LDE"] = time.perf_counter() - t0
+
+    # -- 25. times -------------------------------------------------------------------
+    t0 = time.perf_counter()
+    lg20 = NARROW_CONFIG_LG
+    t_pair = median_ms(lambda: ntt.base_dev(
+        NARROW_FIELD, ntt.base_dev(NARROW_FIELD, config1_x, lg20), lg20,
+        direction=ntt.Direction.inverse), reps=20, warmup=2)
+    wire20 = F.to_wire_np(config1_x)
+    t_pair_host = wall_ms(lambda: ntt.intt(NARROW_FIELD, ntt.ntt(
+        NARROW_FIELD, wire20, lg20), lg20), reps=5)
+    bfly20 = (1 << (lg20 - 1)) * lg20
+    print(f"time NTT {NARROW_FIELD} 2^{lg20} forward + inverse: {t_pair:.4f} "
+          f"ms on device words (median of 20, CUDA events), "
+          f"{2 * bfly20 / (t_pair * 1e-3):.4e} butterflies/s; "
+          f"{t_pair_host:.4f} ms through ntt.ntt + ntt.intt on host arrays "
+          f"(median of 5, wall clock)  [{card}]", flush=True)
+    state = [x]
+
+    def ntt_step():
+        state[0] = ntt.base_dev(NARROW_FIELD, state[0], NARROW_LG)
+
+    t_ntt = median_ms(ntt_step, reps=20, warmup=2)
+    bfly = (n // 2) * NARROW_LG
+    print(f"time NTT {NARROW_FIELD} 2^{NARROW_LG} forward (dependent "
+          f"chain): {t_ntt:.4f} ms, {bfly / (t_ntt * 1e-3):.4e} "
+          f"butterflies/s  [{card}]", flush=True)
+    del state
+    t_lde = median_ms(lambda: ntt.lde_dev(NARROW_FIELD, x, lg,
+                                          NARROW_BLOWUP), reps=5)
+    bfly_lde = (1 << (lg - 1)) * lg + (1 << (lg_ext - 1)) * lg_ext
+    print(f"time LDE {NARROW_FIELD} 2^{lg} x{1 << NARROW_BLOWUP}: "
+          f"{t_lde:.4f} ms (median of 5), {bfly_lde / (t_lde * 1e-3):.4e} "
+          f"butterflies/s  [{card}]", flush=True)
+    shift = get_parameters(NARROW_FIELD, dev).coset_powers(lg_ext, False)
+    coeffs = ntt.base_dev(NARROW_FIELD, x, lg,
+                          direction=ntt.Direction.inverse)
+    pad = torch.zeros((1 << lg_ext) - n, dtype=torch.int32, device=dev)
+    ext = F.mul(torch.cat([coeffs, pad]), shift)
+    parts = {
+        f"inverse NTT 2^{lg}": median_ms(lambda: ntt.base_dev(
+            NARROW_FIELD, x, lg, direction=ntt.Direction.inverse), reps=5),
+        "pad + coset shift (plain)": median_ms(
+            lambda: F.mul(torch.cat([coeffs, pad]), shift), reps=5),
+        f"forward NTT 2^{lg_ext}": median_ms(
+            lambda: ntt.base_dev(NARROW_FIELD, ext, lg_ext), reps=5),
+    }
+    print("time LDE parts: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in parts.items()) + f"  [{card}]",
+        flush=True)
+    del coeffs, pad, ext
+    t_trace = median_ms(lambda: ntt.lde_dev(NARROW_FIELD, trace, TRACE_LG,
+                                            NARROW_BLOWUP), reps=5)
+    tl_ext = TRACE_LG + NARROW_BLOWUP
+    bfly_trace = TRACE_COLS * ((1 << (TRACE_LG - 1)) * TRACE_LG
+                               + (1 << (tl_ext - 1)) * tl_ext)
+    print(f"time trace LDE {NARROW_FIELD} ({TRACE_COLS}, 2^{TRACE_LG}) "
+          f"x{1 << NARROW_BLOWUP}: {t_trace:.4f} ms (median of 5), "
+          f"{bfly_trace / (t_trace * 1e-3):.4e} butterflies/s  [{card}]",
+          flush=True)
+    tshift = get_parameters(NARROW_FIELD, dev).coset_powers(tl_ext, False)
+    coeffs = ntt.base_dev(NARROW_FIELD, trace, TRACE_LG,
+                          direction=ntt.Direction.inverse)
+    pad = torch.zeros((TRACE_COLS, (1 << tl_ext) - (1 << TRACE_LG)),
+                      dtype=torch.int32, device=dev)
+    ext = F.mul(torch.cat([coeffs, pad], -1), tshift)
+    trace_parts = {
+        f"inverse NTT ({TRACE_COLS}, 2^{TRACE_LG})": median_ms(
+            lambda: ntt.base_dev(NARROW_FIELD, trace, TRACE_LG,
+                                 direction=ntt.Direction.inverse), reps=5),
+        "pad + coset shift (plain)": median_ms(
+            lambda: F.mul(torch.cat([coeffs, pad], -1), tshift), reps=5),
+        f"forward NTT ({TRACE_COLS}, 2^{tl_ext})": median_ms(
+            lambda: ntt.base_dev(NARROW_FIELD, ext, tl_ext), reps=5),
+    }
+    print("time trace LDE parts: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in trace_parts.items()) + f"  [{card}]",
+        flush=True)
+    del coeffs, pad, ext, trace
+
+    # each kernel alone at the forward NTT 2^24 shapes
+    tw1, mid, tw2 = fused.fused_tables(NARROW_FIELD, NARROW_LG, False, dev)
+    lg1 = fused.split_lg1(NARROW_LG, NARROW_FIELD)
+    lg2 = NARROW_LG - lg1
+    xm = x.reshape(1 << lg1, 1 << lg2)
+    cases = [
+        ("mont32_ntt_cols", tuple(xm.shape),
+         lambda: K.mont32_cols(NARROW_FIELD, xm, tw1, lg1, mid),
+         lambda: K.mont32_cols_plain(NARROW_FIELD, xm, tw1, lg1, mid),
+         WORD32 * (3 * n + tw1.numel()),
+         OPS_PER_BUTTERFLY_MONT32 * (n // 2) * lg1 + OPS_PER_MUL_MONT32 * n),
+        ("mont32_ntt_rows", tuple(xm.shape),
+         lambda: K.mont32_rows(NARROW_FIELD, xm, tw2, lg2, out_t=True),
+         lambda: K.mont32_rows_plain(NARROW_FIELD, xm, tw2, lg2, out_t=True),
+         WORD32 * (2 * n + tw2.numel()),
+         OPS_PER_BUTTERFLY_MONT32 * (n // 2) * lg2),
+    ]
+    timing = {}
+    for name, shape, kfn, pfn, nbytes, ops in cases:
+        ms = median_ms(kfn, reps=20)
+        pms = median_ms(pfn, reps=3)
+        b, by = bound(nbytes, ops, rate)
+        timing[name] = (ms, pms, b, by)
+        print(f"time {name} at {shape}: {ms:.4f} ms (median of 20; plain "
+              f"{pms:.4f} ms, median of 3), bound {b:.4f} ms by {by}, "
+              f"{b / ms:.3f} of bound  [{card}]", flush=True)
+    del xm, x, y
+    seconds["25 times"] = time.perf_counter() - t0
+    print("narrow phases' seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+
+    main_runs = [*config1.values(), ntt_launches, lde_launches,
+                 trace_launches]
+    launches = {k: sum(r[k] for r in main_runs) for k in errs}
+    numbers = {"narrow_config1_pair_ms": t_pair,
+               "narrow_config1_pair_host_ms": t_pair_host,
+               "narrow_ntt_ms": t_ntt, "narrow_lde_ms": t_lde,
+               "narrow_lde_parts_ms": parts, "narrow_trace_lde_ms": t_trace,
+               "narrow_trace_lde_parts_ms": trace_parts,
+               "narrow_config1_launches": config1,
+               "narrow_ntt_launches": ntt_launches,
+               "narrow_lde_launches": lde_launches,
+               "narrow_trace_lde_launches": trace_launches,
+               "narrow_phase_seconds": seconds}
+    replaces = {"mont32_ntt_rows": "sppark_tpu/ntt/pallas_kernels.py:206",
+                "mont32_ntt_cols": "sppark_tpu/ntt/pallas_kernels.py:319"}
+    entries = []
+    for name, rep in replaces.items():
+        ms, pms, b, by = timing[name]
+        entries.append({"name": name, "route": "cuda",
+                        "source": "sppark_tpu_torch/csrc/ntt_mont32.cu",
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+                        "bound_ms": b, "bound_by": by, "library_ms": None})
+    return entries, numbers
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1771,6 +2231,9 @@ def main():
     torch.cuda.empty_cache()
     tree_entries, tree_numbers, tree_launches = tree_phases(
         dev, card, rate, g1_input, g2_input)
+    del g1_input, g2_input
+    torch.cuda.empty_cache()
+    narrow_entries, narrow_numbers = narrow_phases(dev, card, rate)
     # the G1 and G2 slab MSMs' launches, then the two tree MSMs' (bigmont_ew
     # counted once per path: the G1 and G2 trees' counts are read apart)
     tree_mont = (tree_numbers["tree_g1_launches"]["bigmont_ew"]
@@ -1781,7 +2244,7 @@ def main():
         elif e["name"] in tree_launches:
             e["launches"] += tree_launches[e["name"]]
 
-    # -- 20. summary -----------------------------------------------------------
+    # -- 26. summary -----------------------------------------------------------
     src = "sppark_tpu_torch/csrc/ntt_gl64.cu"
     kernels_line = {"kernels": [
         {"name": "gl64_ntt_rows", "route": "cuda", "source": src,
@@ -1798,12 +2261,17 @@ def main():
          "max_abs_err": errs["gl64_ntt_cols"], "ms": cols_ms,
          "plain_ms": cols_plain_ms, "bound_ms": cols_bound,
          "bound_by": cols_by, "library_ms": None},
-    ] + msm_entries + wide_entries + g2_entries + tree_entries}
+    ] + msm_entries + wide_entries + g2_entries + tree_entries
+        + narrow_entries}
     print(json.dumps({"ntt_ms": t_ntt, "lde_ms": t_lde,
                       "lde_parts_ms": parts, "ntt_launches": ntt_launches,
                       "lde_launches": lde_launches, **wide_numbers,
-                      **g2_numbers, **tree_numbers, "card": card}))
+                      **g2_numbers, **tree_numbers, **narrow_numbers,
+                      "seconds": time.perf_counter() - t_start,
+                      "card": card}))
     print(json.dumps(kernels_line))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"build included")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..params import FieldParams, get_field
+from . import inversion
 from .kernels import (KERNELS, FieldKernels, carry_words, int_words,
                       reduce_once, sub_words, words32, words64)
 
@@ -152,59 +153,18 @@ class BigMontField:
         """Fermat inversion x^(p-2); 0 -> 0."""
         return self.pow_const(x, self.p - 2)
 
-    def _scan(self, x, reverse: bool):
-        """Inclusive prefix (suffix, if reverse) products along the last
-        axis, in lg(n) Hillis-Steele steps."""
-        n = x.shape[-1]
-        d = 1
-        while d < n:
-            lo, hi = x[..., :n - d], x[..., d:]
-            if reverse:
-                x = torch.cat([self.mul(lo, hi), x[..., n - d:]], dim=-1)
-            else:
-                x = torch.cat([x[..., :d], self.mul(hi, lo)], dim=-1)
-            d *= 2
-        return x
-
     def batch_inv(self, x):
         """Montgomery-trick inversion along the last axis: prefix and suffix
         products and ONE Fermat inversion; zero lanes give zero
-        (ff/batch_inversion.hpp:18-52)."""
-        zero = self.is_zero(x)
-        one = self.ones(x.shape[1:], x.device)
-        safe = self.select(zero, one, x)
-        pre = self._scan(safe, reverse=False)
-        suf = self._scan(safe, reverse=True)
-        total_inv = self.inv(pre[..., -1:].contiguous())
-        one1 = one[..., :1]
-        pre_shift = torch.cat([one1, pre[..., :-1]], dim=-1)
-        suf_shift = torch.cat([suf[..., 1:], one1], dim=-1)
-        out = self.mul(self.mul(pre_shift, suf_shift), total_inv)
-        return self.select(zero, torch.zeros_like(x), out)
+        (ff/inversion.py)."""
+        return inversion.batch_inv(self.mul, self.inv, x, self.is_zero(x),
+                                   self.ones(x.shape[1:], x.device))
 
     def batch_inv_tree(self, x):
-        """Inversion along the last axis by a product tree: pair products
-        up to the root, ONE Fermat inversion, then each node's inverse
-        times its sibling down to the leaves (~3 products per element;
-        ff/batch_inversion.hpp:18-52 in parallel form, the port of
-        sppark_tpu/ff/base.py:batch_inv_tree).  Needs a power-of-two axis
-        and non-zero inputs."""
-        n = x.shape[-1]
-        if n & (n - 1):
-            raise ValueError(f"batch_inv_tree needs a power-of-two axis, "
-                             f"not {n}")
-        levels = [x]
-        while levels[-1].shape[-1] > 1:
-            cur = levels[-1]
-            levels.append(self.mul(cur[..., 0::2], cur[..., 1::2]))
-        inv = self.inv(levels[-1])
-        for lvl in reversed(levels[:-1]):
-            # the left child's inverse is inv * right, the right's inv *
-            # left: one product against the pairs swapped
-            pairs = lvl.reshape(lvl.shape[:-1] + (-1, 2))
-            inv = self.mul(inv.repeat_interleave(2, dim=-1),
-                           pairs.flip(-1).reshape(lvl.shape))
-        return inv
+        """Inversion along the last axis by a product tree (the port of
+        sppark_tpu/ff/base.py:batch_inv_tree, ff/inversion.py): a
+        power-of-two axis and non-zero inputs."""
+        return inversion.batch_inv_tree(self.mul, self.inv, x)
 
     # -- Montgomery domain ---------------------------------------------------------
     def to_mont(self, x):

@@ -1,6 +1,7 @@
-"""The quadratic extension F_p^2 = F_p[u]/(u^2 - nr) over a multi-limb
-Montgomery field: the port of sppark_tpu/ff/ext.py:Fp2Field, the
-coordinate field of the G2 curves.
+"""Extension fields: the quadratic extension F_p^2 = F_p[u]/(u^2 - nr)
+over a multi-limb Montgomery field, the port of
+sppark_tpu/ff/ext.py:Fp2Field and the coordinate field of the G2 curves;
+and BabyBear4Field, the quartic extension of BabyBear (below).
 
 An element is ONE tensor of `(2 n32, *batch)` int32 words: c0's n32
 Montgomery words, then c1's.  That is the TPU kernels' stacked-plane order
@@ -28,6 +29,7 @@ import torch
 from ..params import Fp2Params
 from .bigmont import get_field_ops, wire_to_words, words_to_wire
 from .kernels import KERNELS, FieldKernels
+from .mont32 import Mont32Field, get_mont32_ops
 
 
 class Fp2Field:
@@ -183,3 +185,137 @@ def get_fp2_ops(params: Fp2Params, kern: FieldKernels = KERNELS
                 ) -> Fp2Field:
     """The cached Fp2Field of an extension, with the given field kernels."""
     return Fp2Field(params, kern)
+
+
+class BabyBear4Field:
+    """F_p[x]/(x^4 - beta) over BabyBear, beta = 11 (canonical) or -11
+    (RISC Zero): the port of sppark_tpu/ff/ext.py:BabyBear4Field (bb31_4_t,
+    ff/baby_bear.hpp).
+
+    An element is ONE `(4, *batch)` int32 tensor of Montgomery words,
+    coefficient axis first, as Fp2Field keeps its pair axis first; the
+    base field's ops run on it elementwise.  Plain PyTorch: the JAX package
+    has no kernel here either.  Inverses go through the norm tower: with
+    y = x^2, a = A + B x, A = c0 + c2 y, B = c1 + c3 y, the subfield norm
+    N = A^2 - y B^2 and its prime-field norm are inverted, then a^-1 = (A -
+    B x) N^-1.  Inputs are canonical and so is every output."""
+
+    degree = 4
+
+    def __init__(self, canonical: bool = True, base: Mont32Field = None):
+        self.base = base or get_mont32_ops("baby_bear")
+        self.beta_int = 11 if canonical else self.base.p - 11
+
+    def _beta(self, like):
+        return self.base.const(self.beta_int, (1,) * (like.ndim - 1),
+                               like.device)
+
+    # -- ring ops ----------------------------------------------------------------
+    def add(self, a, b):
+        return self.base.add(a, b)
+
+    def sub(self, a, b):
+        return self.base.sub(a, b)
+
+    def neg(self, a):
+        return self.base.neg(a)
+
+    def mul(self, a, b):
+        """c_k = sum_{i+j=k} a_i b_j + beta sum_{i+j=k+4} a_i b_j; the 16
+        products in one base-field call."""
+        F = self.base
+        a, b = torch.broadcast_tensors(a, b)
+        m = F.mul(a[:, None], b[None, :])          # m[i, j] = a_i b_j
+
+        def s(*ij):
+            acc = m[ij[0]]
+            for k in ij[1:]:
+                acc = F.add(acc, m[k])
+            return acc
+
+        hi = torch.stack([s((1, 3), (2, 2), (3, 1)), s((2, 3), (3, 2)),
+                          m[3, 3]])
+        hi = F.mul(hi, self._beta(a))
+        return torch.stack([F.add(m[0, 0], hi[0]),
+                            F.add(s((0, 1), (1, 0)), hi[1]),
+                            F.add(s((0, 2), (1, 1), (2, 0)), hi[2]),
+                            s((0, 3), (1, 2), (2, 1), (3, 0))])
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def select(self, cond, a, b):
+        """Lane-wise select; `cond` is a bool tensor over the batch shape."""
+        return torch.where(cond, a, b)
+
+    def is_zero(self, a):
+        return (a == 0).all(dim=0)
+
+    def eq(self, a, b):
+        return (a == b).all(dim=0)
+
+    # -- constants ---------------------------------------------------------------
+    def zeros(self, batch_shape, device=None):
+        return torch.zeros((4,) + tuple(batch_shape), dtype=torch.int32,
+                           device=device)
+
+    def ones(self, batch_shape=(), device=None):
+        z = self.zeros(batch_shape, device)
+        z[0] = self.base.const(1, batch_shape, device)
+        return z
+
+    # -- inversion -----------------------------------------------------------------
+    def _sub_mul(self, p, q, beta):
+        """(p0 + p1 y)(q0 + q1 y) over F_p[y]/(y^2 - beta), on (2, *b)."""
+        F = self.base
+        m = F.mul(torch.stack([p[0], p[0], p[1], p[1]]),
+                  torch.stack([q[0], q[1], q[1], q[0]]))
+        return torch.stack([F.add(m[0], F.mul(beta, m[2])),
+                            F.add(m[1], m[3])])
+
+    def _inv_by_norm(self, a, base_inv):
+        F = self.base
+        beta = self._beta(a)[0]
+        A, B = a[0::2], a[1::2]                    # (c0, c2), (c1, c3)
+        A2, B2 = self._sub_mul(A, A, beta), self._sub_mul(B, B, beta)
+        N = F.sub(A2, torch.stack([F.mul(beta, B2[1]), B2[0]]))
+        sq = F.mul(N, N)
+        ninv = base_inv(F.sub(sq[0], F.mul(beta, sq[1])))
+        Ninv = F.mul(N, ninv)
+        Ninv = torch.stack([Ninv[0], F.neg(Ninv[1])])
+        Ai, Bi = self._sub_mul(A, Ninv, beta), self._sub_mul(B, Ninv, beta)
+        return torch.stack([Ai[0], F.neg(Bi[0]), Ai[1], F.neg(Bi[1])])
+
+    def inv(self, a):
+        """a^-1 through the norm tower; zero gives zero."""
+        return self._inv_by_norm(a, self.base.inv)
+
+    def batch_inv(self, a):
+        """Inversion along the last axis with ONE base-field batch inversion
+        of the norms (ff/baby_bear.hpp:602-633); zero lanes give zero."""
+        return self._inv_by_norm(a, self.base.batch_inv)
+
+    def batch_inv_tree(self, a):
+        """The same through the base field's product tree: a power-of-two
+        axis, non-zero inputs."""
+        return self._inv_by_norm(a, self.base.batch_inv_tree)
+
+    # -- host conversion -----------------------------------------------------------
+    def from_int_list(self, values: Iterable, batch_shape=None,
+                      device=None) -> torch.Tensor:
+        """Canonical 4-tuples of ints -> (4, n), or (4, *batch_shape)."""
+        values = list(values)
+        return torch.stack([self.base.from_int_list([v[k] for v in values],
+                                                    batch_shape, device)
+                            for k in range(4)])
+
+    def to_int_list(self, t: torch.Tensor) -> List[tuple]:
+        return list(zip(*(self.base.to_int_list(c) for c in t)))
+
+    def from_jax(self, coeffs, device=None) -> torch.Tensor:
+        """The JAX package's 4-tuple of uint32 arrays -> (4, *batch)."""
+        return torch.stack([self.base.from_wire_np(c, device)
+                            for c in coeffs])
+
+    def to_jax(self, t: torch.Tensor):
+        return tuple(self.base.to_wire_np(c) for c in t)

@@ -26,6 +26,8 @@ from typing import Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import inversion, mont32
+
 P = (1 << 64) - (1 << 32) + 1
 EPS = (1 << 32) - 1                 # 2^64 mod p
 _M32 = 0xFFFFFFFF
@@ -142,31 +144,30 @@ def inv(x):
     return pow_const(x, P - 2)
 
 
-def _scan(x, reverse: bool = False):
-    """Inclusive product scan along the last axis (log-depth)."""
-    n = x.shape[-1]
-    d = 1
-    while d < n:
-        if reverse:
-            x = torch.cat([mul(x[..., :-d], x[..., d:]), x[..., n - d:]], -1)
-        else:
-            x = torch.cat([x[..., :d], mul(x[..., d:], x[..., :-d])], -1)
-        d <<= 1
-    return x
+def nth_root(x, k: int):
+    """x^(1/k) for gcd(k, p-1) == 1 (heptaroot, ff/gl64_t.cuh:549-565)."""
+    return mont32.nth_root(pow_const, P, x, k)
+
+
+def heptaroot(x):
+    return nth_root(x, 7)
+
+
+def pentaroot(x):
+    return nth_root(x, 5)
+
+
+def sqrt(x):
+    """Raises NotImplementedError: p = 1 (mod 4) (sppark_tpu/ff/base.py:
+    sqrt takes p = 3 (mod 4) only)."""
+    return mont32.sqrt(pow_const, P, x)
 
 
 def batch_inv(x):
     """Montgomery-trick inversion along the last axis with one Fermat
-    inversion; zeros map to zeros."""
-    zero = canon(x) == 0
-    safe = torch.where(zero, torch.ones_like(x), x)
-    pre, suf = _scan(safe), _scan(safe, reverse=True)
-    total_inv = inv(pre[..., -1:])
-    one = torch.ones_like(x[..., :1])
-    before = torch.cat([one, pre[..., :-1]], -1)
-    after = torch.cat([suf[..., 1:], one], -1)
-    out = mul(mul(before, after), total_inv)
-    return torch.where(zero, torch.zeros_like(x), out)
+    inversion; zeros map to zeros (ff/inversion.py)."""
+    return inversion.batch_inv(mul, inv, x, canon(x) == 0,
+                               torch.ones_like(x))
 
 
 # -- conversions ---------------------------------------------------------------
@@ -212,6 +213,6 @@ def to_ints(t: torch.Tensor) -> List[int]:
 __all__ = [
     "P", "EPS", "to_i64", "add_lazy", "sub_lazy", "mul_lazy", "canon", "add",
     "sub", "mul", "sqr", "neg", "select", "const", "ones", "pow_const", "inv",
-    "batch_inv", "from_wire", "to_wire", "from_jax_planes", "to_jax_planes",
-    "from_ints", "to_ints",
+    "nth_root", "heptaroot", "pentaroot", "sqrt", "batch_inv", "from_wire",
+    "to_wire", "from_jax_planes", "to_jax_planes", "from_ints", "to_ints",
 ]

@@ -5,9 +5,13 @@ NTT::Base_dev_ptr), and the LDE family (NTT::LDE_aux, LDE_powers,
 LDE_expand).
 
 Every NTT field of params.py is taken: Goldilocks words are int64 tensors
-(*batch, n) and wire arrays of u64 (ff/gl64.py); the wide fields' words are
-(n32, *batch, n) int32 Montgomery words and their wire arrays (*batch, n,
-n32) u32 (ff/bigmont.py), as the JAX package's wire format.
+(*batch, n) and wire arrays of u64 (ff/gl64.py); the 31-bit fields'
+(BabyBear, both generators) words are int32 tensors (*batch, n) of u32
+Montgomery words and their wire arrays (*batch, n) u32 (ff/mont32.py); the
+wide fields' words are (n32, *batch, n) int32 Montgomery words and their
+wire arrays (*batch, n, n32) u32 (ff/bigmont.py), as the JAX package's
+wire format.  Mersenne-31 has no NTT: its two-adicity is 1, and sppark
+has none (its `max_lg_domain` is 0), so it is refused.
 
 Host-array entry points take `device=None`, which means the CUDA card: on
 a machine without one they raise unless the caller passes device="cpu".
@@ -22,8 +26,6 @@ from typing import Union
 import numpy as np
 import torch
 
-from ..ff import gl64
-from ..ff.bigmont import get_field_ops
 from ..params import FieldParams, get_field
 from ..runtime.devices import resolve
 from ..util.errors import SpparkError
@@ -69,24 +71,18 @@ def _check_domain(name: str, x: torch.Tensor, lg: int) -> None:
         raise ValueError(f"last axis {x.shape[-1]} != 2^{lg}")
     E = elem_ops(name)
     n32 = get_field(name).n_ref_limbs
-    if x.dtype != E.dtype or (E.wide and x.shape[0] != n32):
-        want = (f"({n32}, *batch, n) int32 Montgomery words" if E.wide
-                else "int64 Goldilocks words")
+    if x.dtype != E.dtype or x.shape[:E.lead] != (n32,) * E.lead:
         got = ("int64 Goldilocks words" if x.dtype == torch.int64
                else f"{x.dtype} {tuple(x.shape)}")
-        raise SpparkError(1, f"{name} takes {want}, not {got}")
+        raise SpparkError(1, f"{name} takes {E.words}, not {got}")
 
 
 def _from_wire(name: str, arr: np.ndarray, device) -> torch.Tensor:
-    if elem_ops(name).wide:
-        return get_field_ops(name).from_wire_np(arr, resolve(device))
-    return gl64.from_wire(arr, resolve(device))
+    return elem_ops(name).from_wire(arr, resolve(device))
 
 
 def _to_wire(name: str, t: torch.Tensor) -> np.ndarray:
-    if elem_ops(name).wide:
-        return get_field_ops(name).to_wire_np(t)
-    return gl64.to_wire(t)
+    return elem_ops(name).to_wire(t)
 
 
 def base_dev(field, x: torch.Tensor, lg_domain: int,

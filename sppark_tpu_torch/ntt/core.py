@@ -2,19 +2,25 @@
 plain Cooley-Tukey stages that the kernels' plain versions run, and the
 element ops the NTT takes from each family of fields.
 
-Two layouts, both with the domain on the last axis:
+Three families, each with the domain on the last axis:
   * Goldilocks: one int64 word per element, (*batch, n) (ff/gl64.py);
+  * the 31-bit Montgomery fields (BabyBear): one int32 word per element,
+    (*batch, n) (ff/mont32.py);
   * the wide (multi-limb Montgomery) fields: n32 int32 words per element,
     limb-major (n32, *batch, n) (ff/bigmont.py).
-`elem_ops(field)` gives either behind one interface; its `lead` is the
-number of leading word axes (0 or 1), which every reshape of the batch
-axes keeps in front.
+`elem_ops(field)` gives each behind one interface: the field ops, `lead`
+(the number of leading word axes, 0 or 1, which every reshape of the
+batch axes keeps in front), the wire converters, `words` (what the
+family's tensors hold, for error messages), `rows`/`cols` (the family's
+kernels of a row and a column pass, from the given `Kernels`) and
+`factored_mid` (whether the middle twiddles stay factored, as the wide
+fields keep them, or form one matrix multiplied in the column pass).
 
 `ct_stages` expects bit-reversed input along the last axis and returns
 natural order, canonical words.  Goldilocks stages run lazily with one
-`canon` at the end, as the gl64 kernels do; the wide stages use canonical
-add/sub and the Montgomery product of the field kernels they were made
-with (the plain versions: ff/kernels.PLAIN).
+`canon` at the end, as the gl64 kernels do; the 31-bit and wide stages use
+canonical add/sub and Montgomery products (for the wide fields those of
+the field kernels they were made with; the plain versions: ff/kernels.PLAIN).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from ..ff import gl64
 from ..ff import kernels as FK
 from ..ff.bigmont import get_field_ops
+from ..ff.mont32 import get_mont32_ops
 from ..params import FieldParams, get_field
 
 
@@ -34,8 +41,11 @@ class Gl64Ops:
     """Goldilocks words: int64, no leading axis, lazy butterflies."""
 
     lead = 0
-    wide = False
     dtype = torch.int64
+    factored_mid = False
+    words = "int64 Goldilocks words"
+    from_wire = staticmethod(gl64.from_wire)
+    to_wire = staticmethod(gl64.to_wire)
 
     def __init__(self, params: FieldParams):
         self.params = params
@@ -49,14 +59,49 @@ class Gl64Ops:
     mull = staticmethod(gl64.mul_lazy)
     canon = staticmethod(gl64.canon)
 
+    @staticmethod
+    def rows(kern, x, tw, lg: int, **opt):
+        return kern.rows(x, tw, lg, **opt)
+
+    @staticmethod
+    def cols(kern, x, tw, lg: int, mid):
+        return kern.cols(x, tw, lg, mid)
+
+
+class Mont32Ops:
+    """31-bit Montgomery words: int32, no leading axis, canonical
+    throughout (the JAX package's kernels have no lazy mont32 ops)."""
+
+    lead = 0
+    dtype = torch.int32
+    factored_mid = False
+    words = "(*batch, n) int32 words of u32 Montgomery form"
+
+    def __init__(self, params: FieldParams):
+        self.params = params
+        F = get_mont32_ops(params)
+        self.mul, self.sqr, self.const, self.ones = F.mul, F.sqr, F.const, \
+            F.ones
+        self.addl, self.subl, self.mull = F.add, F.sub, F.mul
+        self.from_wire, self.to_wire = F.from_wire_np, F.to_wire_np
+
+    #: the words are canonical already; a copy, as gl64.canon returns one
+    canon = staticmethod(torch.clone)
+
+    def rows(self, kern, x, tw, lg: int, **opt):
+        return kern.mont32_rows(self.params.name, x, tw, lg, **opt)
+
+    def cols(self, kern, x, tw, lg: int, mid):
+        return kern.mont32_cols(self.params.name, x, tw, lg, mid)
+
 
 class WideOps:
     """Multi-limb Montgomery words: (n32, *batch) int32, canonical
     throughout, products through the given field kernels."""
 
     lead = 1
-    wide = True
     dtype = torch.int32
+    factored_mid = True
 
     def __init__(self, params: FieldParams, fk: FK.FieldKernels):
         self.params = params
@@ -64,18 +109,32 @@ class WideOps:
         self.mul, self.sqr, self.const, self.ones = F.mul, F.sqr, F.const, \
             F.ones
         self.addl, self.subl, self.mull = F.add, F.sub, F.mul
+        self.from_wire, self.to_wire = F.from_wire_np, F.to_wire_np
+        self.words = f"({F.n32}, *batch, n) int32 Montgomery words"
 
     #: the words are canonical already; a copy, as gl64.canon returns one
     canon = staticmethod(torch.clone)
+
+    def rows(self, kern, x, tw, lg: int, **opt):
+        return kern.wide_rows(self.params.name, x, tw, lg, **opt)
+
+    def cols(self, kern, x, tw, lg: int, mid):
+        """The column pass, then the factored middle twiddles (A, B) in a
+        pass of their own."""
+        name = self.params.name
+        return kern.wide_mid(name, kern.wide_cols(name, x, tw, lg), *mid)
 
 
 @functools.lru_cache(maxsize=None)
 def elem_ops(field: str, fk: FK.FieldKernels = FK.KERNELS):
     """The element ops of an NTT field: Gl64Ops for the Goldilocks fields,
-    WideOps (with the field kernels `fk`) for the others."""
+    Mont32Ops for the 31-bit fields, WideOps (with the field kernels `fk`)
+    for the others."""
     params = get_field(field)
     if params.modulus == gl64.P:
         return Gl64Ops(params)
+    if params.bits <= 32:
+        return Mont32Ops(params)
     return WideOps(params, fk)
 
 

@@ -14,12 +14,15 @@ coset_shift_bitrev and fused_facade_fn).
   * above that, six-step: the row side is itself a four-step over a batch
     of rows, followed by one plain transpose.  Only the top level scales.
 
-Goldilocks multiplies the (N1, N2) matrix T inside the column pass.  The
-wide fields keep T factored, A (N1, N2/block) times B (N1, block), and
-multiply it in a pass of its own (wide_mid), as the TPU does: T would be
-2 GiB at lg 26.  Their caps are their own: a wide tile is 2^11 elements
-(64 KiB of 32-byte elements), and 2^8-point columns leave 8 columns in a
-tile, so each row read fills a 32-byte sector.
+Goldilocks and the 31-bit fields (BabyBear) multiply the (N1, N2) matrix
+T inside the column pass, and share the caps: a 2^13 tile and 2^11-point
+columns, as the JAX package has them for every field that is not wide
+(at lg 24 the mont32 T is 64 MiB of u32).  The wide fields keep T
+factored, A (N1, N2/block) times B (N1, block), and multiply it in a pass
+of its own (wide_mid), as the TPU does: T would be 2 GiB at lg 26.  Their
+caps are their own: a wide tile is 2^11 elements (64 KiB of 32-byte
+elements), and 2^8-point columns leave 8 columns in a tile, so each row
+read fills a 32-byte sector.
 
 Above the tile cap the R orders take standalone `bit_reverse` passes.  The
 caps are read from this module at call time, so tests can lower them to
@@ -29,7 +32,8 @@ Every function takes `kern`, the kernel functions to call: kernels.KERNELS
 (the default, what the entry points use) or kernels.PLAIN (the plain
 versions, to hold the kernels against on the same device).  Arrays hold
 the field's words with the domain last: (*batch, n) int64 for Goldilocks,
-(n32, *batch, n) int32 for the wide fields.
+(*batch, n) int32 for the 31-bit fields, (n32, *batch, n) int32 for the
+wide fields.
 """
 
 from __future__ import annotations
@@ -42,10 +46,11 @@ from .core import bit_reverse, elem_ops
 from .kernels import KERNELS, Kernels
 from .parameters import get_parameters
 
-#: longest transform one Goldilocks row pass takes (kernels.LG_MAX or less)
+#: longest transform one Goldilocks or mont32 row pass takes (kernels.LG_MAX
+#: or less)
 LG_TILE = 13
-#: longest Goldilocks column of the four-step: 2^11 columns keep the
-#: six-step's inner transforms inside one row pass up to lg 24 + 11
+#: longest Goldilocks or mont32 column of the four-step: 2^11 columns keep
+#: the six-step's inner transforms inside one row pass up to lg 24 + 11
 LG_COL_CAP = 11
 #: the same for the wide fields (kernels.LG_MAX_WIDE or less)
 LG_TILE_WIDE = 11
@@ -53,12 +58,12 @@ LG_COL_CAP_WIDE = 8
 
 
 def tile_cap(field: str) -> int:
-    return LG_TILE_WIDE if elem_ops(field).wide else LG_TILE
+    return LG_TILE_WIDE if elem_ops(field).factored_mid else LG_TILE
 
 
 def split_lg1(lg: int, field: str) -> int:
     """Column length of the four/six-step split."""
-    cap = LG_COL_CAP_WIDE if elem_ops(field).wide else LG_COL_CAP
+    cap = LG_COL_CAP_WIDE if elem_ops(field).factored_mid else LG_COL_CAP
     return min(lg // 2, cap)
 
 
@@ -79,7 +84,7 @@ def fused_tables(field: str, lg: int, inverse: bool, device,
         return (pm.power_table(lg, inverse),)
     lg1 = split_lg1(lg, field)
     lg2 = lg - lg1
-    if elem_ops(field).wide:
+    if elem_ops(field).factored_mid:
         block = mid_block(1 << lg2)
         mid = (pm.scaled_middle_twiddle_factored(lg, lg1, block)
                if inverse and top else
@@ -94,12 +99,6 @@ def fused_tables(field: str, lg: int, inverse: bool, device,
     return head + fused_tables(field, lg2, inverse, device, top=False)
 
 
-def _rows(kern: Kernels, field: str, x, tw, lg: int, **opt):
-    if elem_ops(field).wide:
-        return kern.wide_rows(field, x, tw, lg, **opt)
-    return kern.rows(x, tw, lg, **opt)
-
-
 def _batched(x, lead: int, keep: int):
     """x with its batch axes collapsed into one, the `lead` word axes in
     front and the last `keep` axes kept."""
@@ -112,20 +111,16 @@ def _apply_rows_t(kern: Kernels, field: str, x, lg: int, tw):
     """Row pass over (.., B, n) with the transposed store: (.., n, B).
     Leading batch axes collapse into the kernel's outer batch."""
     shape = x.shape
-    y = _rows(kern, field, _batched(x, elem_ops(field).lead, 2), tw, lg,
-              out_t=True)
+    E = elem_ops(field)
+    y = E.rows(kern, _batched(x, E.lead, 2), tw, lg, out_t=True)
     return y.reshape(shape[:-2] + (shape[-1], shape[-2]))
 
 
 def _apply_cols(kern: Kernels, field: str, x, lg: int, tw, mid):
     """Column pass over (.., n1, M) times the middle twiddles; leading
     batch axes collapse into the kernel's batch."""
-    xb = _batched(x, elem_ops(field).lead, 2)
-    if elem_ops(field).wide:
-        y = kern.wide_mid(field, kern.wide_cols(field, xb, tw, lg), *mid)
-    else:
-        y = kern.cols(xb, tw, lg, mid)
-    return y.reshape(x.shape)
+    E = elem_ops(field)
+    return E.cols(kern, _batched(x, E.lead, 2), tw, lg, mid).reshape(x.shape)
 
 
 def fused_core(field: str, x, lg: int, inverse: bool, tables,
@@ -138,8 +133,8 @@ def fused_core(field: str, x, lg: int, inverse: bool, tables,
     E = elem_ops(field, kern.field)
     if lg <= tile_cap(field):
         (tw,) = tables
-        out = _rows(kern, field, _batched(x, E.lead, 1), tw, lg,
-                    in_rev=in_rev, out_rev=out_rev).reshape(x.shape)
+        out = E.rows(kern, _batched(x, E.lead, 1), tw, lg, in_rev=in_rev,
+                     out_rev=out_rev).reshape(x.shape)
         if inverse and scale:
             inv_n = get_parameters(field, x.device).domain_size_inverse(lg)
             out = E.mul(out, E.const(inv_n, (1,) * (x.ndim - E.lead),

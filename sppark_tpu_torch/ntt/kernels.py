@@ -2,21 +2,26 @@
 
 Goldilocks: `ntt_rows` runs csrc/ntt_gl64.cu:gl64_ntt_rows (the port of
 sppark_tpu/ntt/pallas_kernels.py:_rows_kernel) and `ntt_cols` runs
-gl64_ntt_cols (the port of _cols_kernel).  The wide (multi-limb Montgomery)
-fields: `wide_rows`, `wide_cols` and `wide_mid` run csrc/ntt_wide.cu's
-bigmont_ntt_rows, bigmont_ntt_cols (the two kernels' wide uses) and
-bigmont_ntt_mid (the port of _mid_factored_kernel).  On a CUDA tensor a
-wrapper launches its kernel on the current stream or raises; on a CPU
-tensor it computes the same function with the plain version.  Each launch
-adds one to its count: `launches[name]` for the Goldilocks kernels,
-`wide_launches[name]` for the wide ones.
+gl64_ntt_cols (the port of _cols_kernel).  The 31-bit Montgomery fields
+(BabyBear): `mont32_rows` and `mont32_cols` run csrc/ntt_mont32.cu's
+mont32_ntt_rows and mont32_ntt_cols, the same two kernels over one u32
+word per element (both sources instantiate csrc/ntt_narrow.cuh).  The
+wide (multi-limb Montgomery) fields: `wide_rows`, `wide_cols` and
+`wide_mid` run csrc/ntt_wide.cu's bigmont_ntt_rows, bigmont_ntt_cols (the
+two kernels' wide uses) and bigmont_ntt_mid (the port of
+_mid_factored_kernel).  On a CUDA tensor a wrapper launches its kernel on
+the current stream or raises; on a CPU tensor it computes the same
+function with the plain version.  Each launch adds one to its count:
+`launches[name]` for the Goldilocks kernels, `narrow_launches[name]` for
+the mont32 ones, `wide_launches[name]` for the wide ones.
 
-Shapes (contiguous; int64 Goldilocks words, or limb-major (n32, ...) int32
-Montgomery words with the limb axis in front of the shapes below):
+Shapes (contiguous; int64 Goldilocks words, int32 mont32 words, or
+limb-major (n32, ...) int32 Montgomery words with the limb axis in front
+of the shapes below):
   rows: x, mul (B, n) or (OB, B, n); out the same, or (OB?, n, B) with
         out_t.  NTTs along the last axis.
-  cols: x (n1, M) or (B, n1, M); mul (n1, M), Goldilocks only.  NTTs
-        along axis -2.
+  cols: x (n1, M) or (B, n1, M); mul (n1, M), Goldilocks and mont32
+        only.  NTTs along axis -2.
   mid:  x (n1, M) or (B, n1, M); a (n1, M / block); b (n1, block):
         x[.., k1, j] * a[k1, j / block] * b[k1, j mod block].
   tw: the power table [w^0 .. w^(n/2 - 1)] of the transform's root.
@@ -30,33 +35,40 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .. import _build
-from ..ff import gl64
 from ..ff import kernels as FK
 from ..params import get_field
 from ..util.errors import SpparkError
-from .core import bit_reverse, ct_stages, elem_ops
+from .core import Mont32Ops, bit_reverse, ct_stages, elem_ops
 
 #: longest transform one kernel pass takes: a 2^13 row of u64 is the 64 KiB
-#: of shared memory a block holds
+#: of shared memory a block holds (the mont32 kernels take the same cap)
 LG_MAX = 13
 #: the same for the wide kernels: 2^11 elements of 8 words are 64 KiB
 LG_MAX_WIDE = 11
 
 launches = {"gl64_ntt_rows": 0, "gl64_ntt_cols": 0}
+narrow_launches = {"mont32_ntt_rows": 0, "mont32_ntt_cols": 0}
 wide_launches = {"bigmont_ntt_rows": 0, "bigmont_ntt_cols": 0,
                  "bigmont_ntt_mid": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, wide_launches):
+    for counts in (launches, narrow_launches, wide_launches):
         for k in counts:
             counts[k] = 0
 
 
-_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_VP, _LL, _I, _U = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_uint)
 _SIGNATURES = {
     "gl64_ntt_rows": [_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _VP],
     "gl64_ntt_cols": [_VP, _VP, _VP, _VP, _LL, _I, _LL, _VP],
+}
+# the same with the field's p and M0 = -p^-1 mod 2^32 before the stream
+_MONT32_SIGNATURES = {
+    "mont32_ntt_rows": [_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _U, _U,
+                        _VP],
+    "mont32_ntt_cols": [_VP, _VP, _VP, _VP, _LL, _I, _LL, _U, _U, _VP],
 }
 _WIDE_SIGNATURES = {
     "bigmont_ntt_rows": [_I, _VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I,
@@ -69,6 +81,10 @@ _WIDE_SIGNATURES = {
 
 def _lib() -> ctypes.CDLL:
     return _build.load("ntt_gl64", _SIGNATURES)
+
+
+def _mont32_lib() -> ctypes.CDLL:
+    return _build.load("ntt_mont32", _MONT32_SIGNATURES)
 
 
 def _wide_lib() -> ctypes.CDLL:
@@ -111,81 +127,168 @@ _GL64 = elem_ops("goldilocks")
 
 # -- rows ----------------------------------------------------------------------
 
-def ntt_rows_plain(x, tw, lg: int, mul=None, in_rev: bool = True,
-                   out_rev: bool = False, out_t: bool = False):
-    """Plain version of gl64_ntt_rows."""
-    y = ct_stages(_GL64, bit_reverse(x, lg) if in_rev else x, lg, tw)
+def rows_plain(E, x, tw, lg: int, mul=None, in_rev: bool = True,
+               out_rev: bool = False, out_t: bool = False):
+    """The row kernels' function with the element ops E."""
+    y = ct_stages(E, bit_reverse(x, lg) if in_rev else x, lg, tw)
     if out_rev:
         y = bit_reverse(y, lg)
     if mul is not None:
-        y = gl64.mul(y, mul)
+        y = E.mul(y, mul)
     return y.transpose(-1, -2).contiguous() if out_t else y
+
+
+def ntt_rows_plain(x, tw, lg: int, mul=None, in_rev: bool = True,
+                   out_rev: bool = False, out_t: bool = False):
+    """Plain version of gl64_ntt_rows."""
+    return rows_plain(_GL64, x, tw, lg, mul, in_rev, out_rev, out_t)
+
+
+def _check_rows(name: str, x, tw, lg: int, mul, out_rev: bool, dtype):
+    """mul + out_rev is rejected, as the TPU kernel rejects it: the
+    multiplier applies after the output bit reversal, so it would have to
+    arrive bit-reversed, and no caller needs that."""
+    if mul is not None and out_rev:
+        raise ValueError(f"{name}: mul applies after out_rev; the "
+                         f"combination is unsupported")
+    _check_args(name, x, tw, lg, mul, -1, dtype=dtype)
+    if mul is not None and mul.shape != x.shape:
+        raise ValueError(f"{name}: mul {tuple(mul.shape)} != x "
+                         f"{tuple(x.shape)}")
+
+
+def _launch_rows(name: str, lib, x, tw, lg: int, mul, in_rev: bool,
+                 out_rev: bool, out_t: bool, *consts):
+    """Launch the narrow row kernel `name` of the library that `lib` loads
+    (consts: the field's, before the stream) into a new output; raise on a
+    CUDA error.  The device is checked before the library is built."""
+    _check_cuda(name, x, tw, mul)
+    fn = getattr(lib(), name)
+    ob, b = (1, x.shape[0]) if x.ndim == 2 else x.shape[:2]
+    n = 1 << lg
+    out = torch.empty(x.shape[:-2] + (n, b) if out_t else x.shape,
+                      dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(tw), _ptr(mul), _ptr(out), ob, b, lg,
+                int(in_rev), int(out_rev), int(out_t), *consts,
+                torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise SpparkError(rc, f"{name}: CUDA error {rc}")
+    return out
 
 
 def ntt_rows(x, tw, lg: int, mul=None, in_rev: bool = True,
              out_rev: bool = False, out_t: bool = False):
-    """Batched NTTs along the last axis (see the module docstring).
-
-    mul + out_rev is rejected, as the TPU kernel rejects it: the multiplier
-    applies after the output bit reversal, so it would have to arrive
-    bit-reversed, and no caller needs that."""
-    if mul is not None and out_rev:
-        raise ValueError("ntt_rows: mul applies after out_rev; the "
-                         "combination is unsupported")
-    _check_args("ntt_rows", x, tw, lg, mul, -1)
-    if mul is not None and mul.shape != x.shape:
-        raise ValueError(f"ntt_rows: mul {tuple(mul.shape)} != x "
-                         f"{tuple(x.shape)}")
+    """Batched NTTs along the last axis (see the module docstring)."""
+    _check_rows("ntt_rows", x, tw, lg, mul, out_rev, torch.int64)
     if x.device.type == "cpu":
         return ntt_rows_plain(x, tw, lg, mul, in_rev, out_rev, out_t)
-    _check_cuda("ntt_rows", x, tw, mul)
-    ob, b = (1, x.shape[0]) if x.ndim == 2 else x.shape[:2]
-    n = 1 << lg
-    out = torch.empty(x.shape[:-2] + (n, b) if out_t else x.shape,
-                      dtype=torch.int64, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _lib().gl64_ntt_rows(
-            _ptr(x), _ptr(tw), _ptr(mul), _ptr(out), ob, b, lg, int(in_rev),
-            int(out_rev), int(out_t), torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise SpparkError(rc, f"gl64_ntt_rows: CUDA error {rc}")
+    out = _launch_rows("gl64_ntt_rows", _lib, x, tw, lg, mul, in_rev,
+                       out_rev, out_t)
     launches["gl64_ntt_rows"] += 1
     return out
 
 
 # -- columns -------------------------------------------------------------------
 
-def ntt_cols_plain(x, tw, lg: int, mul=None):
-    """Plain version of gl64_ntt_cols."""
-    y = ct_stages(_GL64, bit_reverse(x.transpose(-1, -2), lg), lg, tw)
+def cols_plain(E, x, tw, lg: int, mul=None):
+    """The column kernels' function with the element ops E."""
+    y = ct_stages(E, bit_reverse(x.transpose(-1, -2), lg), lg, tw)
     y = y.transpose(-1, -2)
     if mul is not None:
-        y = gl64.mul(y, mul)
+        y = E.mul(y, mul)
     return y.contiguous()
+
+
+def ntt_cols_plain(x, tw, lg: int, mul=None):
+    """Plain version of gl64_ntt_cols."""
+    return cols_plain(_GL64, x, tw, lg, mul)
+
+
+def _check_cols(name: str, x, tw, lg: int, mul, dtype):
+    _check_args(name, x, tw, lg, mul, -2, dtype=dtype)
+    if mul is not None and mul.shape != x.shape[-2:]:
+        raise ValueError(f"{name}: mul {tuple(mul.shape)} != "
+                         f"{tuple(x.shape[-2:])}")
+    m = x.shape[-1]
+    if m & (m - 1):
+        raise ValueError(f"{name}: column count {m} is not a power of two")
+
+
+def _launch_cols(name: str, lib, x, tw, lg: int, mul, *consts):
+    """The same for the narrow column kernel `name`."""
+    _check_cuda(name, x, tw, mul)
+    fn = getattr(lib(), name)
+    batch = 1 if x.ndim == 2 else x.shape[0]
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = fn(_ptr(x), _ptr(tw), _ptr(mul), _ptr(out), batch, lg,
+                x.shape[-1], *consts, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise SpparkError(rc, f"{name}: CUDA error {rc}")
+    return out
 
 
 def ntt_cols(x, tw, lg: int, mul=None):
     """Batched NTTs along axis -2, times the middle matrix `mul` (one
     (n1, M) matrix for every batch slice) when it is given."""
-    _check_args("ntt_cols", x, tw, lg, mul, -2)
-    if mul is not None and mul.shape != x.shape[-2:]:
-        raise ValueError(f"ntt_cols: mul {tuple(mul.shape)} != "
-                         f"{tuple(x.shape[-2:])}")
-    m = x.shape[-1]
-    if m & (m - 1):
-        raise ValueError(f"ntt_cols: column count {m} is not a power of two")
+    _check_cols("ntt_cols", x, tw, lg, mul, torch.int64)
     if x.device.type == "cpu":
         return ntt_cols_plain(x, tw, lg, mul)
-    _check_cuda("ntt_cols", x, tw, mul)
-    batch = 1 if x.ndim == 2 else x.shape[0]
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _lib().gl64_ntt_cols(
-            _ptr(x), _ptr(tw), _ptr(mul), _ptr(out), batch, lg, m,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise SpparkError(rc, f"gl64_ntt_cols: CUDA error {rc}")
+    out = _launch_cols("gl64_ntt_cols", _lib, x, tw, lg, mul)
     launches["gl64_ntt_cols"] += 1
+    return out
+
+
+# -- the 31-bit Montgomery fields ------------------------------------------------
+
+def _mont32_consts(name: str, field: str):
+    """(p, M0) of a 31-bit Montgomery field, for the kernel's multiply."""
+    params = get_field(field)
+    if not (isinstance(elem_ops(field), Mont32Ops)
+            and params.montgomery_wire):
+        raise ValueError(f"{name}: {field} is not a 31-bit Montgomery field")
+    return params.modulus, params.m0(32)
+
+
+def mont32_rows_plain(field: str, x, tw, lg: int, mul=None,
+                      in_rev: bool = True, out_rev: bool = False,
+                      out_t: bool = False):
+    """Plain version of mont32_ntt_rows."""
+    return rows_plain(elem_ops(field), x, tw, lg, mul, in_rev, out_rev,
+                      out_t)
+
+
+def mont32_rows(field: str, x, tw, lg: int, mul=None, in_rev: bool = True,
+                out_rev: bool = False, out_t: bool = False):
+    """Batched NTTs along the last axis of int32 words of a 31-bit field;
+    the options as ntt_rows has them (mul + out_rev rejected likewise)."""
+    consts = _mont32_consts("mont32_rows", field)
+    _check_rows("mont32_rows", x, tw, lg, mul, out_rev, torch.int32)
+    if x.device.type == "cpu":
+        return mont32_rows_plain(field, x, tw, lg, mul, in_rev, out_rev,
+                                 out_t)
+    out = _launch_rows("mont32_ntt_rows", _mont32_lib, x, tw, lg, mul,
+                       in_rev, out_rev, out_t, *consts)
+    narrow_launches["mont32_ntt_rows"] += 1
+    return out
+
+
+def mont32_cols_plain(field: str, x, tw, lg: int, mul=None):
+    """Plain version of mont32_ntt_cols."""
+    return cols_plain(elem_ops(field), x, tw, lg, mul)
+
+
+def mont32_cols(field: str, x, tw, lg: int, mul=None):
+    """Batched NTTs along axis -2 of int32 words of a 31-bit field, times
+    the middle matrix `mul` when it is given."""
+    consts = _mont32_consts("mont32_cols", field)
+    _check_cols("mont32_cols", x, tw, lg, mul, torch.int32)
+    if x.device.type == "cpu":
+        return mont32_cols_plain(field, x, tw, lg, mul)
+    out = _launch_cols("mont32_ntt_cols", _mont32_lib, x, tw, lg, mul,
+                       *consts)
+    narrow_launches["mont32_ntt_cols"] += 1
     return out
 
 
@@ -212,13 +315,8 @@ def wide_rows_plain(field: str, x, tw, lg: int, mul=None,
                     in_rev: bool = True, out_rev: bool = False,
                     out_t: bool = False):
     """Plain version of bigmont_ntt_rows."""
-    E = elem_ops(field, FK.PLAIN)
-    y = ct_stages(E, bit_reverse(x, lg) if in_rev else x, lg, tw)
-    if out_rev:
-        y = bit_reverse(y, lg)
-    if mul is not None:
-        y = E.mul(y, mul)
-    return y.transpose(-1, -2).contiguous() if out_t else y
+    return rows_plain(elem_ops(field, FK.PLAIN), x, tw, lg, mul, in_rev,
+                      out_rev, out_t)
 
 
 def wide_rows(field: str, x, tw, lg: int, mul=None, in_rev: bool = True,
@@ -253,9 +351,7 @@ def wide_rows(field: str, x, tw, lg: int, mul=None, in_rev: bool = True,
 
 def wide_cols_plain(field: str, x, tw, lg: int):
     """Plain version of bigmont_ntt_cols."""
-    E = elem_ops(field, FK.PLAIN)
-    y = ct_stages(E, bit_reverse(x.transpose(-1, -2), lg), lg, tw)
-    return y.transpose(-1, -2).contiguous()
+    return cols_plain(elem_ops(field, FK.PLAIN), x, tw, lg)
 
 
 def wide_cols(field: str, x, tw, lg: int):
@@ -330,11 +426,13 @@ def wide_mid(field: str, x, a, b):
 
 class Kernels(NamedTuple):
     """The kernel functions the NTT orchestration calls: the Goldilocks
-    pair, the wide three, and the field kernels of the wide fields'
-    elementwise products (coset shift, 1/N)."""
+    pair, the mont32 pair, the wide three, and the field kernels of the
+    wide fields' elementwise products (coset shift, 1/N)."""
 
     rows: Callable
     cols: Callable
+    mont32_rows: Callable
+    mont32_cols: Callable
     wide_rows: Callable
     wide_cols: Callable
     wide_mid: Callable
@@ -342,8 +440,9 @@ class Kernels(NamedTuple):
 
 
 #: what the entry points use: the kernels on CUDA tensors
-KERNELS = Kernels(ntt_rows, ntt_cols, wide_rows, wide_cols, wide_mid,
-                  FK.KERNELS)
+KERNELS = Kernels(ntt_rows, ntt_cols, mont32_rows, mont32_cols, wide_rows,
+                  wide_cols, wide_mid, FK.KERNELS)
 #: the plain versions on any device, to hold the kernels against
-PLAIN = Kernels(ntt_rows_plain, ntt_cols_plain, wide_rows_plain,
-                wide_cols_plain, wide_mid_plain, FK.PLAIN)
+PLAIN = Kernels(ntt_rows_plain, ntt_cols_plain, mont32_rows_plain,
+                mont32_cols_plain, wide_rows_plain, wide_cols_plain,
+                wide_mid_plain, FK.PLAIN)

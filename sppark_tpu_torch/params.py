@@ -4,6 +4,11 @@ supports.
 Every constant is derived from the published definition of the field or
 curve (modulus, multiplicative generator, curve coefficient, cofactor).
 
+  * The 31-bit fields: BabyBear p = 15 * 2^27 + 1 with its canonical
+    generator 31 and the RISC Zero variant with generator 3 (sppark
+    ntt/parameters/baby_bear.h), Montgomery form with R = 2^32 on the wire;
+    Mersenne-31 p = 2^31 - 1, canonical on the wire, with no NTT (its
+    2-adicity is 1).
   * Goldilocks p = 2^64 - 2^32 + 1 with canonical generator 7, and the
     Plonky2 variant with generator 0xc65c18b67785d900 (sppark
     ntt/parameters/goldilocks.h).  Stored raw, not in Montgomery form, so
@@ -164,6 +169,24 @@ class CurveParams:
         return 1 if self.fp2 is None else 2
 
 
+BABY_BEAR = FieldParams(
+    name="baby_bear",
+    modulus=0x78000001,
+    generator=31,
+    max_lg_domain=27,
+)
+
+BABY_BEAR_RISC0 = dataclasses.replace(BABY_BEAR, name="baby_bear_risc0",
+                                      generator=3)
+
+MERSENNE31 = FieldParams(
+    name="mersenne31",
+    modulus=(1 << 31) - 1,
+    generator=7,
+    montgomery_wire=False,
+    max_lg_domain=0,
+)
+
 GOLDILOCKS = FieldParams(
     name="goldilocks",
     modulus=(1 << 64) - (1 << 32) + 1,
@@ -258,6 +281,9 @@ TEST_GL64_G2_FR = FieldParams(
     montgomery_wire=False,
 )
 
+BLS12_377_G1 = CurveParams("bls12_377", BLS12_377_FP, BLS12_377_FR, b=1,
+                           cofactor=0x170B5D44300000000000000000000000)
+
 BN254_FP2 = Fp2Params("bn254_fp2", BN254_FP, BN254_FP.modulus - 1)
 BLS12_381_FP2 = Fp2Params("bls12_381_fp2", BLS12_381_FP,
                           BLS12_381_FP.modulus - 1)
@@ -287,13 +313,13 @@ BLS12_377_G2 = CurveParams(
     cofactor=0x26BA558AE9562ADDD88D99A6F6A829FBB36B00E1DCC40C8C505634FAE2E189D693E8C36676BD09A0F3622FBA094800452217CC900000000000000000000001)
 
 FIELDS = {f.name: f for f in (
-    GOLDILOCKS, GOLDILOCKS_PLONKY2, BN254_FR, BN254_FP, BLS12_381_FR,
-    BLS12_381_FP, BLS12_377_FR, BLS12_377_FP, PALLAS_P, VESTA_Q,
+    BABY_BEAR, BABY_BEAR_RISC0, MERSENNE31, GOLDILOCKS, GOLDILOCKS_PLONKY2,
+    BN254_FR, BN254_FP, BLS12_381_FR, BLS12_381_FP, BLS12_377_FR, BLS12_377_FP, PALLAS_P, VESTA_Q,
     TEST_BM64_FP, TEST_BM64_FR, TEST_BM64_FR_SCALAR, GOLDILOCKS_BM)}
 
 CURVES = {c.name: c for c in (
-    BN254_G1, BLS12_381_G1, PALLAS_G1, VESTA_G1, TEST_BM64_G1,
-    BLS12_381_G2, BN254_G2, BLS12_377_G2, TEST_BM64_G2)}
+    BN254_G1, BLS12_381_G1, BLS12_377_G1, PALLAS_G1, VESTA_G1,
+    TEST_BM64_G1, BLS12_381_G2, BN254_G2, BLS12_377_G2, TEST_BM64_G2)}
 
 
 def get_field(name: str) -> FieldParams:

@@ -86,6 +86,80 @@ def test_facade_on_card(dev, lg):
             oracle.ntt_natural(fp, ints)
 
 
+# -- the 31-bit (mont32) NTT kernels ------------------------------------------------
+
+def _mont32_words(rng, dev, *shape):
+    """Canonical BabyBear words with 0, 1 (Montgomery) and p - 1 in the
+    first lanes and p - 1 in a whole warp's lanes."""
+    fp = params.BABY_BEAR
+    w = rng.integers(0, fp.modulus, size=shape, dtype=np.int64)
+    flat = w.reshape(-1)
+    flat[:3] = [0, fp.one_mont, fp.modulus - 1][:flat.size]
+    flat[32:64] = fp.modulus - 1
+    return torch.from_numpy(w.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("field,lg", [("baby_bear", 1), ("baby_bear", 7),
+                                      ("baby_bear_risc0", 13)])
+def test_mont32_rows_kernel_vs_plain(dev, field, lg):
+    rng = np.random.default_rng(lg)
+    tw = get_parameters(field, dev).power_table(lg, False)
+    x = _mont32_words(rng, dev, 2, 5, 1 << lg)
+    mul = _mont32_words(rng, dev, 2, 5, 1 << lg)
+    before = K.narrow_launches["mont32_ntt_rows"]
+    for in_rev in (False, True):
+        for out_rev in (False, True):
+            for out_t in (False, True):
+                for m in ((None,) if out_rev else (None, mul)):
+                    args = (x, tw, lg, m, in_rev, out_rev, out_t)
+                    got = K.mont32_rows(field, *args)
+                    torch.cuda.synchronize()
+                    assert torch.equal(
+                        got, K.mont32_rows_plain(field, *args)), args[3:]
+    assert K.narrow_launches["mont32_ntt_rows"] == before + 12
+
+
+@pytest.mark.parametrize("lg", [1, 6, 11])
+def test_mont32_cols_kernel_vs_plain(dev, lg):
+    rng = np.random.default_rng(lg)
+    tw = get_parameters("baby_bear", dev).power_table(lg, True)
+    x = _mont32_words(rng, dev, 3, 1 << lg, 64)
+    mid = _mont32_words(rng, dev, 1 << lg, 64)
+    for xx in (x, x[0].contiguous()):
+        for m in (None, mid):
+            got = K.mont32_cols("baby_bear", xx, tw, lg, m)
+            torch.cuda.synchronize()
+            assert torch.equal(got, K.mont32_cols_plain("baby_bear", xx, tw,
+                                                        lg, m))
+
+
+def test_baby_bear_facade_on_card(dev):
+    """BabyBear 2^16 (the four-step: both mont32 kernels) against the
+    plain facade on the card for every configuration, and the natural
+    forward transform against the big-int oracle."""
+    from sppark_tpu_torch.ff.mont32 import get_mont32_ops
+
+    field, lg = "baby_bear", 16
+    F = get_mont32_ops(field)
+    x = _mont32_words(np.random.default_rng(16), dev, 1 << lg)
+    K.reset_launches()
+    y = ntt.base_dev(field, x, lg)
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in K.narrow_launches.values())
+    assert F.to_int_list(y) == oracle.ntt_natural(params.BABY_BEAR,
+                                                  F.to_int_list(x))
+    for order in ntt.InputOutputOrder:
+        for inverse in (False, True):
+            for coset in (False, True):
+                got = ntt.base_dev(field, x, lg, order,
+                                   ntt.Direction(int(inverse)),
+                                   ntt.Type(int(coset)))
+                want = fused.facade(field, x, lg, order.value, inverse,
+                                    coset, kern=K.PLAIN)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (order, inverse, coset)
+
+
 # -- the wide-field NTT kernels ---------------------------------------------------
 
 WIDE_FIELDS = ["test_bm64_fr", "bn254_fr", "bls12_381_fr"]

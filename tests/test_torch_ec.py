@@ -150,3 +150,27 @@ def test_point_kernels_cpu_contract():
     with pytest.raises(TypeError):
         FK.check_words("ec_xyzz_dbl", get_curve("test_bm64").field,
                        *(c.to(torch.int64) for c in p))
+
+
+def test_bls12_377_g1_curve():
+    """get_curve("bls12_377") carries the JAX package's BLS12_377_G1
+    constants; a sampled oracle point (the same as the JAX package's
+    oracle draws from the same seed) lies on the curve and in the
+    r-subgroup, and crosses into the port's words and back."""
+    from sppark_tpu import params as jparams
+    from sppark_tpu.oracle.ec import get_oracle as jax_oracle
+
+    cp, jp = get_curve("bls12_377"), jparams.get_curve("bls12_377")
+    assert (cp.field.modulus, cp.scalar.modulus, cp.b, cp.a4, cp.cofactor,
+            cp.degree) == (jp.field.modulus, jp.scalar.modulus, jp.b, jp.a4,
+                           jp.cofactor, 1)
+    assert cp.field.n_ref_limbs == 12
+    o = get_oracle(cp)
+    pt = o.random_point(random.Random(7))
+    jpt = jax_oracle(jp).random_point(random.Random(7))
+    assert (pt.x, pt.y) == (jpt.x, jpt.y) and not pt.inf
+    p = cp.field.modulus
+    assert (pt.y * pt.y - pt.x ** 3 - cp.b) % p == 0
+    assert o._is_zero(o._int_mul(pt, cp.scalar.modulus).z)
+    ops = get_curve_ops("bls12_377", FK.PLAIN)
+    assert ops.affine_to_ints(ops.affine_from_ints([pt])) == [(pt.x, pt.y)]

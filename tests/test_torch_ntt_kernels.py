@@ -128,8 +128,10 @@ def test_wrappers_check_arguments(bad):
     else:
         x, tw = x.to("meta"), tw.to("meta")
     err = SpparkError if bad == "device" else (ValueError, TypeError)
-    with pytest.raises(err):
+    # the device is refused before the kernel's library is built
+    match = "no kernel for device" if bad == "device" else None
+    with pytest.raises(err, match=match):
         K.ntt_rows(x, tw, lg)
-    with pytest.raises(err):
+    with pytest.raises(err, match=match):
         K.ntt_cols(x.transpose(0, 1).contiguous(), tw, lg)
     assert K.launches == {"gl64_ntt_rows": 0, "gl64_ntt_cols": 0}
