@@ -17,10 +17,12 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      round trip and the oracle at lg 10;
   5. times the NTT, the LDE and each NTT kernel alone at its 2^24 shapes
      with CUDA events, beside the plain versions and the kernels' bounds;
-  6. holds the Montgomery multiply and the three xyzz point kernels against
-     their plain versions on test_bm64, Pasta and BLS12-381, exactly, with
-     edge values and planted special lanes (empty bucket, point at
-     infinity, doubling, cancellation, a warp with no doubling lane);
+  6. holds the Montgomery multiply, the fixed-exponent power bigmont_pow
+     (e = 0, 1, 2, p - 2, (p + 1) / 4 at 1, 31, 32, 33 and 2^16 lanes) and
+     the three xyzz point kernels against their plain versions on
+     test_bm64, Pasta and BLS12-381, exactly, with edge values and planted
+     special lanes (empty bucket, point at infinity, doubling,
+     cancellation, a warp with no doubling lane);
   7. drives the MSM main path, BLS12-381 G1 2^24 through
      `MSMContext.set_points` + `invoke` on device-resident scalar words,
      with the launch counts set to 0 just before and read just after;
@@ -50,11 +52,12 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
  13. times the wide NTT, the LDE and each wide kernel alone at its 2^26
      shapes, beside the plain versions (on a 2^20-element slice) and the
      bounds, and reads the peak device memory of one NTT;
- 14. holds the three fp2 point kernels (ec_fp2_xyzz_madd / add / dbl)
-     against their plain versions on test_bm64_g2, BN254, BLS12-381 and
-     BLS12-377 G2 (nonresidues 7, -1, -1, -5), exactly, with the planted
-     lanes of phase 6, point-major slab rows and a warp with no special
-     lane;
+ 14. holds the three fp2 point kernels (ec_fp2_xyzz_madd, on a lane pair
+     of threads per bucket, / add / dbl) against their plain versions on
+     test_bm64_g2, BN254, BLS12-381 and BLS12-377 G2 (nonresidues 7, -1,
+     -1, -5), exactly, with the planted lanes of phase 6, point-major slab
+     rows, a warp with no special lane, warps of 16 buckets with exactly
+     one doubling pair and one pair at infinity, and 1, 17 and 65 lanes;
  15. drives the G2 main path, BLS12-381 G2 2^23 (the reference bench's G2
      size) through `MSMContext.set_points` + `invoke`, with the launch
      counts set to 0 just before and read just after: 2^11 base points
@@ -80,9 +83,13 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      chunked invoke, and at 2^10 `msm_naive` with planted and all-equal
      scalars, Montgomery-form scalars and the plain path on the card; then
      BLS12-381 G2 2^23 on phase 15's input, equal to its exact result;
+     each tree launched bigmont_pow once per level and once for to_affine;
  19. times both tree MSMs, profiles each invoke (peak memory, busy share,
      phases, kernels) and times each pair kernel alone at its level-1
-     shape beside its plain version and its bound;
+     shape, and bigmont_pow at one lane (x^(p - 2), every inversion's
+     shape), beside its plain version and its bound, and prints
+     bigmont_pow's chain and its single-thread floor, and the same
+     inversion timed as the chain of bigmont_ew launches it replaced;
  20. holds the mont32 NTT kernels (mont32_ntt_rows, mont32_ntt_cols)
      against their plain versions on BabyBear with both generators, every
      option, canonical words with 0, 1 and p - 1 planted, and at the shapes
@@ -115,8 +122,9 @@ integer operations over the card's INT32 rate (SMs x 64 lanes x the
 maximum SM clock, read from nvidia-smi); a wide butterfly counts one
 Montgomery product (4 n32^2) and an add and a sub (2 n32 each); an fp2
 product 3 products and its additions, an fp2 squaring 2 squarings, a
-product and its additions (fp2_ops); a mont32 butterfly 14 operations
-counted from csrc/ntt_mont32.cu.
+product and its additions (fp2_ops); a mont32 butterfly 15 operations
+counted from csrc/ntt_mont32.cu; bigmont_pow the squarings and products
+of its windowed chain (pow_chain).
 Any failed check raises, so the run exits non-zero and prints no last line.
 It exits non-zero at once without a CUDA device or without the package.
 """
@@ -152,6 +160,7 @@ LG_BASE = 11        # distinct points, tiled (the reference bench protocol)
 LG_SMALL = 10       # the msm_naive and plain-path checks
 PLAIN_WBITS = 4     # the plain path's windows: few buckets, a short integrate
 EC_CURVES = ("test_bm64", "pallas", "bls12_381")
+POW_LANES = (1, 31, 32, 33, 1 << 16)    # bigmont_pow's checks: prefixes
 M32 = 0xFFFFFFFF
 
 
@@ -480,6 +489,20 @@ def wall_ms(fn, reps):
     return statistics.median(out)
 
 
+def host_us_per_call(fn, reps=2000):
+    """Host microseconds per call over `reps` back-to-back calls, after a
+    warm-up: the time to issue, where the device keeps up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
 def kernel_ms(fn, reps):
     """Device time per call over `reps` back-to-back calls between two CUDA
     events, after one warm-up call: launch overhead hides behind the
@@ -519,11 +542,14 @@ EC_OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
 
 def kernel_group(name):
     """A device event's name, the point and field kernels by their op."""
-    m = re.search(r"ec_kernel<mont::(Fp2?)<\d+>, ?(\d)>", name)
+    m = re.search(r"ec_kernel<mont::(Fp2Pair|Fp2|Fp)<\d+>, ?(\d)>", name)
     if m:
-        return ("ec_fp2_" if m.group(1) == "Fp2" else "ec_") + \
+        return ("ec_" if m.group(1) == "Fp" else "ec_fp2_") + \
             EC_OPS[int(m.group(2))]
-    return "bigmont_ew" if "ew_kernel<" in name else name[:60]
+    for kernel in ("ew", "pow"):
+        if f"{kernel}_kernel<" in name:
+            return "bigmont_" + kernel
+    return name[:60]
 
 
 def profile_breakdown(prof):
@@ -687,16 +713,16 @@ def msm_times(ctx, wd, curve, lg, card):
 
 def msm_phases(dev, card, rate):
     """Phases 6-9.  Returns (the kernels' entries of the summary line, the
-    main path's base points and exact result, for the tree in phase
-    18)."""
+    main path's base points and exact result, for the tree in phase 18,
+    the main path's launches, bigmont_pow's largest error in phase 6)."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
     from sppark_tpu_torch.ff.bigmont import get_field_ops
     from sppark_tpu_torch.params import get_curve
 
-    errs = {k: 0 for k in ("bigmont_ew", "ec_xyzz_madd", "ec_xyzz_add",
-                           "ec_xyzz_dbl")}
+    errs = {k: 0 for k in ("bigmont_ew", "bigmont_pow", "ec_xyzz_madd",
+                           "ec_xyzz_add", "ec_xyzz_dbl")}
 
     def same(name, got, want, what):
         torch.cuda.synchronize()
@@ -718,6 +744,16 @@ def msm_phases(dev, card, rate):
                  FK.mont_mul_plain(x, y, fp), f"{curve} mul {n} lanes")
             same("bigmont_ew", FK.mont_sqr(x, fp), FK.mont_sqr_plain(x, fp),
                  f"{curve} sqr {n} lanes")
+        # the fixed-exponent chain on prefixes of one input, edge values
+        # planted: each exponent's plain chain runs once, at the widest
+        x = rand_canon(F, POW_LANES[-1], rng, dev)
+        p = F.p
+        for what, e in (("0", 0), ("1", 1), ("2", 2), ("p - 2", p - 2),
+                        ("(p + 1) / 4", (p + 1) // 4)):
+            want = FK.mont_pow_plain(x, e, fp)
+            for n in POW_LANES:
+                same("bigmont_pow", FK.mont_pow(x[:, :n], e, fp),
+                     want[:, :n], f"{curve} x^e, e = {what}, {n} lanes")
         p, a, q = ec_cases(curve, 1000, dev, seed=11)
         same("ec_xyzz_madd", EK.xyzz_madd(curve, p, a),
              EK.xyzz_madd_plain(curve, p, a), f"{curve} madd, planted lanes")
@@ -795,7 +831,7 @@ def msm_phases(dev, card, rate):
                         "replaces": rep, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
                         "bound_ms": b, "bound_by": by, "library_ms": None})
-    return entries, (base, want)
+    return entries, (base, want), launches, errs["bigmont_pow"]
 
 
 # -- wide-field NTT phases (10-13) --------------------------------------------------
@@ -1193,6 +1229,22 @@ def fp2_ops(n32, nr):
             2 * sqr_ops(n32) + prod_ops(n32) + (1 + nr_adds) * add, 2 * add)
 
 
+def pair_warps():
+    """Lane selections from ec_cases' lanes for the lane-pair fp2 madd: one
+    warp of 16 buckets with exactly one doubling pair (lane 33) and one
+    pair at infinity (the affine point, lane 35, or the bucket, lane 36),
+    then 1, 17 and 65 lanes, whose threads end inside a block."""
+    out = []
+    for what, inf in (("the affine point", 35), ("the bucket", 36)):
+        lanes = list(range(16))
+        lanes[5], lanes[9] = 33, inf
+        out.append((f"a warp with one doubling pair and {what} at "
+                    f"infinity", lanes))
+    for n in (1, 17, 65):
+        out.append((f"{n} lanes", list(range(n))))
+    return out
+
+
 def g2_base(curve, nbase, seed):
     """(G, [r_j], [r_j G]): nbase uniform points of the prime-order
     subgroup, drawn as r_j G from one cofactor-cleared point G with seeded
@@ -1232,9 +1284,8 @@ def g2_base(curve, nbase, seed):
 
 def g2_phases(dev, card, rate):
     """Phases 14-16.  Returns (the fp2 kernels' entries of the summary
-    line, the phases' numbers, bigmont_ew's launches on the main path, the
-    main path's base points and exact result, for the tree in phase
-    18)."""
+    line, the phases' numbers, the main path's base points and exact
+    result, for the tree in phase 18)."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.msm import MSMContext
@@ -1276,6 +1327,13 @@ def g2_phases(dev, card, rate):
              EK.xyzz_madd_plain(curve, tuple(c[:, :k] for c in p),
                                 tuple(c[:, :k] for c in a)),
              f"{curve} madd, one warp with no special lane")
+        # the madd runs a bucket on a lane pair, 16 buckets a warp: warps
+        # in which exactly one pair doubles and one pair is at infinity,
+        # and lane counts off the block's edge
+        for what, lanes in pair_warps():
+            pw, aw = (tuple(c[:, lanes] for c in t) for t in (p, a))
+            same("ec_fp2_xyzz_madd", EK.xyzz_madd(curve, pw, aw),
+                 EK.xyzz_madd_plain(curve, pw, aw), f"{curve} madd, {what}")
     seconds["14 kernels vs plain"] = time.perf_counter() - t0
 
     # -- 15. main path: BLS12-381 G2 2^23 --------------------------------------
@@ -1343,7 +1401,7 @@ def g2_phases(dev, card, rate):
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
             "library_ms": None})
-    return entries, numbers, launches["bigmont_ew"], (base, want)
+    return entries, numbers, (base, want)
 
 
 # -- tree MSM phases (17-19) --------------------------------------------------------
@@ -1437,20 +1495,37 @@ def pair_level1(curve, ctx, wd, M, S, A):
     ]
 
 
-def tree_phases(dev, card, rate, g1, g2):
+POW_WINDOW = 4      # the exponent digit of csrc/bigmont.cu's bigmont_pow
+
+
+def pow_chain(e, win):
+    """(squarings, products) of bigmont_pow's chain for exponent e by
+    fixed windows of `win` bits: the table of x^2 .. x^(2^win - 1) (none
+    for win = 1), then win squarings per digit below the top one and a
+    product per non-zero digit."""
+    top = (e.bit_length() - 1) // win
+    digits = [(e >> (win * d)) & ((1 << win) - 1) for d in range(top)]
+    table = (1 << win) - 2 if win > 1 else 0
+    return win * top, table + sum(1 for d in digits if d)
+
+
+def tree_phases(dev, card, rate, g1, g2, pow_err):
     """Phases 17-19 on the G1 and G2 main paths' (base points, exact
-    result).  Returns (the pair kernels' entries of the summary line, the
+    result); `pow_err` is bigmont_pow's largest error in phase 6.  Returns
+    (the pair kernels' and bigmont_pow's entries of the summary line, the
     phases' numbers, the tree paths' launches)."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ec.core import get_curve_ops
     from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
     from sppark_tpu_torch.msm.tree import batch_inv_flat
     from sppark_tpu_torch.params import get_curve
 
     names = [EK.kernel_name(op, c) for c in (MSM_CURVE, G2_CURVE)
              for op in ("pair_prep", "pair_finish")]
     errs = dict.fromkeys(names, 0)
+    errs["bigmont_pow"] = pow_err
     seconds = {}
 
     def same(name, got, want, what):
@@ -1499,6 +1574,13 @@ def tree_phases(dev, card, rate, g1, g2):
         G2_CURVE, TREE_G2_LG, dev, full=False, base=base2,
         exact=lambda words: want2, lg_small=LG_SMALL_G2, mode="tree")
     seconds["18 G2 tree and checks"] = time.perf_counter() - t0
+    for curve, lg, counts in ((MSM_CURVE, MSM_LG, launches),
+                              (G2_CURVE, TREE_G2_LG, launches2)):
+        levels = counts[EK.kernel_name("pair_prep", curve)]
+        check(counts["bigmont_pow"] == levels + 1,
+              f"tree {curve} 2^{lg}: bigmont_pow launched once per level "
+              f"({levels}) and once for to_affine; bigmont_ew "
+              f"{counts['bigmont_ew']} times")
 
     # -- 19. times ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1524,12 +1606,78 @@ def tree_phases(dev, card, rate, g1, g2):
         del cases
         torch.cuda.empty_cache()
     del ctx, ctx2
+    # bigmont_pow at the shape of every inversion of the MSM paths: one
+    # lane (each tree level's root, to_affine's total), x^(p - 2) over the
+    # base field of both curves
+    fp = get_curve(MSM_CURVE).field
+    N, p = fp.n_ref_limbs, fp.modulus
+    x = get_field_ops(fp).from_int_list([random.Random(19).randrange(1, p)],
+                                        device=dev)
+    win = POW_WINDOW
+    nsqr, nmul = pow_chain(p - 2, win)
+    ops = nsqr * sqr_ops(N) + nmul * prod_ops(N)
+    timing.update(time_kernels(
+        [("bigmont_pow", 1, lambda: FK.mont_pow(x, p - 2, fp),
+          lambda: FK.mont_pow_plain(x, p - 2, fp), 2 * 4 * N, ops)],
+        same, rate, card))
+    # one thread cannot issue faster than its warp: one instruction per
+    # cycle at the SM clock, over the chain's counted operations
+    clock = rate / (torch.cuda.get_device_properties(0).multi_processor_count
+                    * 64)
+    floor_ms = ops / clock * 1e3
+    print(f"bigmont_pow x^(p - 2) over {fp.name}: {win}-bit windows, "
+          f"{nsqr} squarings + {nmul} products ({pow_chain(p - 2, 1)[0]} + "
+          f"{pow_chain(p - 2, 1)[1]} bit by bit), {ops} operations; "
+          f"single-thread floor {floor_ms:.4f} ms at one instruction per "
+          f"cycle and {clock / 1e9:.3f} GHz  [{card}]", flush=True)
+
+    # the same inversion as it ran before bigmont_pow: one bigmont_ew
+    # launch per square and per product, through the wrapper, MSB first
+    def ew_chain():
+        acc = x
+        for bit in bin(p - 2)[3:]:
+            acc = FK.mont_sqr(acc, fp)
+            if bit == "1":
+                acc = FK.mont_mul(acc, x, fp)
+        return acc
+
+    same("bigmont_pow", FK.mont_pow(x, p - 2, fp), ew_chain(),
+         "x^(p - 2) at one lane against the chain of bigmont_ew launches")
+    chain_ms = {
+        "bigmont_pow wall": wall_ms(lambda: FK.mont_pow(x, p - 2, fp), 5),
+        "bigmont_ew chain wall": wall_ms(ew_chain, 5),
+        "bigmont_ew chain events": kernel_ms(ew_chain, 5)}
+    nbits = (p - 2).bit_length()
+    print(f"time x^(p - 2) over {fp.name} at one lane, one call of "
+          f"bigmont_pow against the chain of {nbits - 1} + "
+          f"{bin(p - 2).count('1') - 1} bigmont_ew launches it replaced "
+          "(wall: median of 5, synchronised; events: CUDA events over 5 "
+          "back-to-back chains): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in chain_ms.items())
+          + f"  [{card}]", flush=True)
+    # the host time of one bigmont_ew call at one lane: the wrapper
+    # (argument checks, allocation, device guard, ctypes), then the bare
+    # ctypes launch on pointers made once
+    out = torch.empty_like(x)
+    lib, consts = FK._lib(), FK.field_consts(fp).ctypes.data
+    stream = torch.cuda.current_stream().cuda_stream
+    host_us = {
+        "wrapper": host_us_per_call(lambda: FK.mont_mul(x, x, fp)),
+        "bare launch": host_us_per_call(lambda: lib.bigmont_ew(
+            N, 0, x.data_ptr(), x.data_ptr(), out.data_ptr(), 1, consts,
+            stream))}
+    print("host us per bigmont_ew call at one lane (mean of 2000): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host_us.items())
+          + f"  [{card}]", flush=True)
     seconds["19 times"] = time.perf_counter() - t0
     print("tree phases' seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
     numbers.update({"tree_g1_launches": launches,
                     "tree_g2_launches": launches2,
-                    "tree_phase_seconds": seconds})
+                    "tree_phase_seconds": seconds,
+                    "pow_single_thread_floor_ms": floor_ms,
+                    "pow_vs_ew_chain_ms": chain_ms,
+                    "bigmont_ew_host_us_per_call": host_us})
     line = {"pair_prep": 477, "pair_finish": 523}
     entries = []
     for name in names:
@@ -1544,6 +1692,15 @@ def tree_phases(dev, card, rate, g1, g2):
             "launches": counts[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
             "library_ms": None})
+    ms, pms, b, by = timing["bigmont_pow"]
+    entries.append({
+        "name": "bigmont_pow", "route": "cuda",
+        "source": "sppark_tpu_torch/csrc/bigmont.cu",
+        "replaces": "sppark_tpu/ff/bigmont.py:383 (the lax.scan chain of "
+                    "sppark_tpu/ff/base.py:154)",
+        "launches": launches["bigmont_pow"] + launches2["bigmont_pow"],
+        "max_abs_err": errs["bigmont_pow"], "ms": ms, "plain_ms": pms,
+        "bound_ms": b, "bound_by": by, "library_ms": None})
     return entries, numbers, {**launches, **launches2}
 
 
@@ -2010,13 +2167,13 @@ def main():
         entry = ""
         for line in rec["log"].splitlines():
             m = re.search(r"Compiling entry function '\w*?"
-                          r"((?:ew|rows|cols|mid)_kernel)"
+                          r"((?:ew|pow|rows|cols|mid)_kernel)"
                           r"(I(?:L[ib]\d+E)+E)?", line)
             if m:
                 args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
                 entry = m.group(1) + (f"<{','.join(args)}>" if args else "")
-            m = re.search(r"ec_kernelIN4mont\d(Fp2?)ILi(\d+)EEELi(\d)E",
-                          line)
+            m = re.search(r"ec_kernelIN4mont\d+(Fp2Pair|Fp2|Fp)ILi(\d+)EEELi"
+                          r"(\d)E", line)
             if m:
                 entry = (f"ec_kernel<{m.group(1)}<{m.group(2)}>,"
                          f"{EC_OPS[int(m.group(3))]}>")
@@ -2223,25 +2380,28 @@ def main():
               f"{b / ms:.3f} of bound)  [{card}]", flush=True)
 
     del xm, tables, main_shapes, state, x, y
-    msm_entries, g1_input = msm_phases(dev, card, rate)
+    msm_entries, g1_input, g1_launches, pow_err = msm_phases(dev, card,
+                                                             rate)
     torch.cuda.empty_cache()
     wide_entries, wide_numbers = wide_phases(dev, card, rate)
     torch.cuda.empty_cache()
-    g2_entries, g2_numbers, g2_mont, g2_input = g2_phases(dev, card, rate)
+    g2_entries, g2_numbers, g2_input = g2_phases(dev, card, rate)
     torch.cuda.empty_cache()
     tree_entries, tree_numbers, tree_launches = tree_phases(
-        dev, card, rate, g1_input, g2_input)
+        dev, card, rate, g1_input, g2_input, pow_err)
     del g1_input, g2_input
     torch.cuda.empty_cache()
     narrow_entries, narrow_numbers = narrow_phases(dev, card, rate)
-    # the G1 and G2 slab MSMs' launches, then the two tree MSMs' (bigmont_ew
-    # counted once per path: the G1 and G2 trees' counts are read apart)
-    tree_mont = (tree_numbers["tree_g1_launches"]["bigmont_ew"]
-                 + tree_numbers["tree_g2_launches"]["bigmont_ew"])
-    for e in msm_entries + g2_entries:
-        if e["name"] == "bigmont_ew":
-            e["launches"] += g2_mont + tree_mont
-        elif e["name"] in tree_launches:
+    # the Montgomery kernels run on all four MSM paths, whose counts were
+    # read apart: the G1 and G2 slabs', then the two trees'; the point
+    # kernels of the slabs' entries also run in the trees' integrate
+    paths = (g1_launches, g2_numbers["g2_launches"],
+             tree_numbers["tree_g1_launches"],
+             tree_numbers["tree_g2_launches"])
+    for e in msm_entries + g2_entries + tree_entries:
+        if e["name"] in ("bigmont_ew", "bigmont_pow"):
+            e["launches"] = sum(run[e["name"]] for run in paths)
+        elif e in msm_entries + g2_entries and e["name"] in tree_launches:
             e["launches"] += tree_launches[e["name"]]
 
     # -- 26. summary -----------------------------------------------------------

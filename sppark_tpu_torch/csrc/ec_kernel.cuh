@@ -1,7 +1,8 @@
 // The point kernels' body and launch, shared by ec_xyzz.cu and
 // ec_pair.cu (G1, element mont::Fp<N>) and ec_fp2_*.cu (G2, element
-// mont::Fp2<N>): one point (or pair) per thread, the formulas of xyzz.cuh
-// and pair.cuh.
+// mont::Fp2<N>, or mont::Fp2Pair<N> for the madd): one point (or pair) per
+// thread, or per lane pair of threads for Fp2Pair (Elem<E>::THREADS), the
+// formulas of xyzz.cuh and pair.cuh.
 //
 // Operands: each input coordinate is a (W, n) view, W = N words for Fp<N>
 // and 2 N for Fp2<N> (c0's words, then c1's), given by a pointer and two
@@ -57,6 +58,13 @@ __device__ __forceinline__ void load(const View& v, long long i, int w0,
     load(v, i, w0 + N, r.c1);
 }
 
+// a lane pair: the even thread reads c0's words, the odd thread c1's
+template <int N>
+__device__ __forceinline__ void load(const View& v, long long i, int w0,
+                                     mont::Fp2Pair<N>& r) {
+    load(v, i, w0 + (mont::pair_odd() ? N : 0), r.v);
+}
+
 template <class E>
 __device__ __forceinline__ E load(const View& v, long long i) {
     E r;
@@ -86,12 +94,22 @@ __device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
     store(out, n, i, row + N, a.c1);
 }
 
+template <int N>
+__device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
+                                      long long row,
+                                      const mont::Fp2Pair<N>& a) {
+    store(out, n, i, row + (mont::pair_odd() ? N : 0), a.v);
+}
+
 template <class E, int OP>
 __global__ void __launch_bounds__(THREADS)
 ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
-    long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+    // lane i: one thread, or the lane pair (2i, 2i + 1), which exits or
+    // runs on together
+    long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) /
+                  mont::Elem<E>::THREADS;
     if (i >= a.n) return;
-    constexpr long long W = sizeof(E) / sizeof(uint32_t);
+    constexpr long long W = mont::Elem<E>::WORDS;
     if (OP == PAIR_PREP) {
         E den;
         uint32_t f = pair::prep(load<E>(a.in[0], i), load<E>(a.in[1], i),
@@ -141,12 +159,13 @@ void launch(const long long* views, int n_in, uint32_t* out, long long n,
     a.out = out;
     a.n = n;
     a.c = mont::make_consts<N>(consts);
-    unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+    long long threads = n * mont::Elem<E>::THREADS;
+    unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
     ec_kernel<E, OP><<<blocks, THREADS, 0, s>>>(a);
 }
 
-// The launch for base width n32 of element family F (mont::Fp or
-// mont::Fp2): N = 2, 8 or 12; another width is refused.
+// The launch for base width n32 of element family F (mont::Fp, mont::Fp2
+// or mont::Fp2Pair): N = 2, 8 or 12; another width is refused.
 template <template <int> class F, int OP>
 int dispatch(int n32, const void* views, int n_in, void* out, long long n,
              const void* consts, void* stream) {

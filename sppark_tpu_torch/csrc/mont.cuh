@@ -15,8 +15,19 @@
 // BLS12-381, -5 for BLS12-377, 7 for test_bm64_g2), as the TPU kernels'
 // degree-2 element (sppark_tpu/ec/pallas_ops.py:_KCtx): mul is Karatsuba
 // over three base products with nr * t1 by additions, sqr two squarings
-// and one product.  The reference spreads the two coefficients over a warp
-// lane pair (ff/alt_bn128-fp2.hpp:25-60); here one thread holds both.
+// and one product; one thread holds both coefficients.
+//
+// Fp2Pair<N> is the same element spread over a lane pair, as the
+// reference's fp2_t (ff/alt_bn128-fp2.hpp:25-60): two adjacent threads hold
+// one element, the even thread c0 and the odd thread c1, so a point op
+// needs half the registers per thread.  A product swaps the operands with
+// the partner (__shfl_xor_sync over the pair's two lanes) and each thread
+// computes its own coefficient as a dot product of two products with ONE
+// Montgomery reduction (dot): c0 = a0 b0 + (nr a1) b1, c1 = a1 b0 + a0 b1.
+// A square takes the (a + b)(a - b) form, one product a thread: c0 = (a0
+// + a1)(a0 + nr a1) - (1 + nr) a0 a1, c1 = 2 a0 a1.  A zero test reads
+// both coefficients, so both threads of a pair take every branch
+// together; a kernel on this element keeps all its branches pair-uniform.
 //
 // Every function takes canonical inputs (< p) and returns canonical output,
 // so the words a kernel stores are the TPU kernels' words exactly.
@@ -195,6 +206,62 @@ MONT_HD Fp<N> mul(const Fp<N>& a, const Fp<N>& b, const Consts<N>& c) {
     return reduce_once<N>(t, t[N], c);
 }
 
+// (a b + x y) R^-1 mod p: CIOS over both products with ONE reduction (the
+// reference's dot_product, ff/mont_t.cuh:697-719).  Its state stays below
+// 3p, so two conditional subtractions end it for any p < R.
+template <int N>
+MONT_HD Fp<N> dot(const Fp<N>& a, const Fp<N>& b, const Fp<N>& x,
+                  const Fp<N>& y, const Consts<N>& c) {
+    uint32_t t[N + 2];
+#pragma unroll
+    for (int i = 0; i < N + 2; i++) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+        // t += a * b[i] + x * y[i]
+        uint64_t C = 0;
+#pragma unroll
+        for (int j = 0; j < N; j++) {
+            uint64_t s = (uint64_t)a.w[j] * b.w[i] + t[j] + C;
+            t[j] = (uint32_t)s;
+            C = s >> 32;
+        }
+        uint64_t s = (uint64_t)t[N] + C;
+        t[N] = (uint32_t)s;
+        t[N + 1] = (uint32_t)(s >> 32);
+        C = 0;
+#pragma unroll
+        for (int j = 0; j < N; j++) {
+            s = (uint64_t)x.w[j] * y.w[i] + t[j] + C;
+            t[j] = (uint32_t)s;
+            C = s >> 32;
+        }
+        s = (uint64_t)t[N] + C;
+        t[N] = (uint32_t)s;
+        t[N + 1] += (uint32_t)(s >> 32);
+        // t = (t + m p) / 2^32
+        uint32_t m = t[0] * c.m0;
+        s = (uint64_t)m * c.p[0] + t[0];
+        C = s >> 32;
+#pragma unroll
+        for (int j = 1; j < N; j++) {
+            s = (uint64_t)m * c.p[j] + t[j] + C;
+            t[j - 1] = (uint32_t)s;
+            C = s >> 32;
+        }
+        s = (uint64_t)t[N] + C;
+        t[N - 1] = (uint32_t)s;
+        t[N] = t[N + 1] + (uint32_t)(s >> 32);
+    }
+    // t + t[N] R < 3p: subtract p once if it is at least p, then the usual
+    // final subtraction
+    uint32_t d[N];
+    uint32_t borrow = sub_words<N>(d, t, c.p);
+    bool ge = t[N] || !borrow;
+#pragma unroll
+    for (int i = 0; i < N; i++) d[i] = ge ? d[i] : t[i];
+    return reduce_once<N>(d, ge ? t[N] - borrow : 0, c);
+}
+
 // a^2 * R^-1 mod p.
 template <int N>
 MONT_HD Fp<N> sqr(const Fp<N>& a, const Consts<N>& c) {
@@ -274,19 +341,29 @@ MONT_HD Fp2<N> sub(const Fp2<N>& a, const Fp2<N>& b, const Consts<N>& c) {
     return Fp2<N>{sub(a.c0, b.c0, c), sub(a.c1, b.c1, c)};
 }
 
-// t0 + nr * t1, with |nr| * t1 by doubling and adding.
+// k * t for a small k >= 0, by doubling and adding.
+template <int N>
+MONT_HD Fp<N> times(const Fp<N>& t, int k, const Consts<N>& c) {
+    if (k == 1) return t;
+    Fp<N> m = zero<N>(), run = t;
+    for (; k; k >>= 1) {
+        if (k & 1) m = add(m, run, c);
+        if (k > 1) run = add(run, run, c);
+    }
+    return m;
+}
+
+// k * t for a small signed k.
+template <int N>
+MONT_HD Fp<N> times_signed(const Fp<N>& t, int k, const Consts<N>& c) {
+    Fp<N> m = times(t, k < 0 ? -k : k, c);
+    return k < 0 ? sub(zero<N>(), m, c) : m;
+}
+
+// t0 + nr * t1.
 template <int N>
 MONT_HD Fp<N> add_nr(const Fp<N>& t0, const Fp<N>& t1, const Consts<N>& c) {
-    int k = c.nr < 0 ? -c.nr : c.nr;
-    Fp<N> m = t1;
-    if (k != 1) {
-        Fp<N> run = t1;
-        m = zero<N>();
-        for (; k; k >>= 1) {
-            if (k & 1) m = add(m, run, c);
-            if (k > 1) run = add(run, run, c);
-        }
-    }
+    Fp<N> m = times(t1, c.nr < 0 ? -c.nr : c.nr, c);
     return c.nr < 0 ? sub(t0, m, c) : add(t0, m, c);
 }
 
@@ -308,14 +385,96 @@ MONT_HD Fp2<N> sqr(const Fp2<N>& a, const Consts<N>& c) {
     return Fp2<N>{add_nr(t0, t1, c), add(m, m, c)};
 }
 
-// What generic code (xyzz.cuh) needs of an element type beyond the
-// overloaded ops: its zero, and a base-field constant embedded in it.
+// -- the quadratic extension on a lane pair ---------------------------------
+
+// The lane pair, on the card only: this thread's parity (1: it holds c1)
+// and the partner's copy of a word, by a shuffle over the pair's two lanes
+// only, so that pairs may diverge from each other.  Unlike the rest of
+// this header, the pair element has no host version.
+#ifdef __CUDACC__
+#define MONT_D __device__ __forceinline__
+
+MONT_D bool pair_odd() { return threadIdx.x & 1; }
+
+MONT_D uint32_t pair_swap(uint32_t v) {
+    return __shfl_xor_sync(3u << (threadIdx.x & 30), v, 1);
+}
+
+template <int N>
+struct Fp2Pair {
+    Fp<N> v;    // c0 on the even thread of the pair, c1 on the odd
+};
+
+template <int N>
+MONT_D Fp<N> partner(const Fp<N>& a) {
+    Fp<N> r;
+#pragma unroll
+    for (int i = 0; i < N; i++) r.w[i] = pair_swap(a.w[i]);
+    return r;
+}
+
+template <int N>
+MONT_D bool is_zero(const Fp2Pair<N>& a) {
+    uint32_t z = is_zero(a.v);
+    return z & pair_swap(z);
+}
+
+template <int N>
+MONT_D Fp2Pair<N> select(bool c, const Fp2Pair<N>& a, const Fp2Pair<N>& b) {
+    return Fp2Pair<N>{select(c, a.v, b.v)};
+}
+
+template <int N>
+MONT_D Fp2Pair<N> add(const Fp2Pair<N>& a, const Fp2Pair<N>& b,
+                       const Consts<N>& c) {
+    return Fp2Pair<N>{add(a.v, b.v, c)};
+}
+
+template <int N>
+MONT_D Fp2Pair<N> sub(const Fp2Pair<N>& a, const Fp2Pair<N>& b,
+                       const Consts<N>& c) {
+    return Fp2Pair<N>{sub(a.v, b.v, c)};
+}
+
+// even: c0 = a0 b0 + (nr a1) b1; odd: c1 = a1 b0 + a0 b1.  Each thread
+// holds its own a and b and receives the partner's; selects, not branches,
+// pick the operands, so the pair stays converged.
+template <int N>
+MONT_D Fp2Pair<N> mul(const Fp2Pair<N>& a, const Fp2Pair<N>& b,
+                       const Consts<N>& c) {
+    bool odd = pair_odd();
+    Fp<N> ao = partner(a.v), bo = partner(b.v);
+    Fp<N> nra = times_signed(ao, c.nr, c);
+    return Fp2Pair<N>{dot(select(odd, ao, a.v), b.v,
+                          select(odd, a.v, nra), bo, c)};
+}
+
+// even: m = (a0 + a1)(a0 + nr a1), c0 = m - (1 + nr) a0 a1; odd: m = a0 a1,
+// c1 = 2 m.  One product a thread, the odd one's sent to the even.
+template <int N>
+MONT_D Fp2Pair<N> sqr(const Fp2Pair<N>& a, const Consts<N>& c) {
+    bool odd = pair_odd();
+    Fp<N> ao = partner(a.v);
+    Fp<N> m = mul(select(odd, ao, add(a.v, ao, c)),
+                  select(odd, a.v, add(a.v, times_signed(ao, c.nr, c), c)),
+                  c);
+    Fp<N> t = partner(m);
+    return Fp2Pair<N>{select(odd, add(m, m, c),
+                             sub(m, times_signed(t, 1 + c.nr, c), c))};
+}
+
+#endif  // __CUDACC__
+
+// What generic code (xyzz.cuh, ec_kernel.cuh) needs of an element type
+// beyond the overloaded ops: its zero, a base-field constant embedded in
+// it, its base width, the threads that hold one element and the words of
+// one element in memory.
 template <class E>
 struct Elem;
 
 template <int N>
 struct Elem<Fp<N>> {
-    static constexpr int BASE = N;
+    static constexpr int BASE = N, THREADS = 1, WORDS = N;
     static MONT_HD Fp<N> zero() { return mont::zero<N>(); }
     static MONT_HD Fp<N> embed(const uint32_t* w) {
         return from_words<N>(w);
@@ -324,7 +483,7 @@ struct Elem<Fp<N>> {
 
 template <int N>
 struct Elem<Fp2<N>> {
-    static constexpr int BASE = N;
+    static constexpr int BASE = N, THREADS = 1, WORDS = 2 * N;
     static MONT_HD Fp2<N> zero() {
         return Fp2<N>{mont::zero<N>(), mont::zero<N>()};
     }
@@ -332,5 +491,17 @@ struct Elem<Fp2<N>> {
         return Fp2<N>{from_words<N>(w), mont::zero<N>()};
     }
 };
+
+#ifdef __CUDACC__
+template <int N>
+struct Elem<Fp2Pair<N>> {
+    static constexpr int BASE = N, THREADS = 2, WORDS = 2 * N;
+    static MONT_D Fp2Pair<N> zero() { return Fp2Pair<N>{mont::zero<N>()}; }
+    static MONT_D Fp2Pair<N> embed(const uint32_t* w) {
+        return Fp2Pair<N>{select(pair_odd(), mont::zero<N>(),
+                                 from_words<N>(w))};
+    }
+};
+#endif  // __CUDACC__
 
 }  // namespace mont

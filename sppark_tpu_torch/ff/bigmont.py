@@ -10,11 +10,12 @@ package's `(L, *batch)` 16-bit-limb planes packed in pairs
 the JAX package's (c0 planes, c1 planes) pair <-> the port's (2 n32, ...)
 words, c0's then c1's, as ff/ext.py:Fp2Field holds them).
 
-`mul` and `sqr` go through the field kernels a field is made with
-(ff/kernels.py: the bigmont_ew kernel on CUDA tensors by default, or the
-plain versions); `add`, `sub`, `neg`, `select` and the rest are plain
-PyTorch, as the JAX package left them to XLA.  Inputs are canonical
-(< p) and so is every output.
+`mul`, `sqr` and `pow_const` (so every inversion) go through the field
+kernels a field is made with (ff/kernels.py: the bigmont_ew and
+bigmont_pow kernels on CUDA tensors by default, or the plain versions);
+`add`, `sub`, `neg`, `select` and the rest are plain PyTorch, as the JAX
+package left them to XLA.  Inputs are canonical (< p) and so is every
+output.
 """
 
 from __future__ import annotations
@@ -139,15 +140,10 @@ class BigMontField:
 
     # -- exponentiation and inversion ----------------------------------------------
     def pow_const(self, x, e: int):
-        """x^e for a fixed exponent, MSB first (pow_byref, ff/pow.hpp)."""
-        if e == 0:
-            return self.ones(x.shape[1:], x.device).contiguous()
-        acc = x
-        for bit in bin(e)[3:]:
-            acc = self.sqr(acc)
-            if bit == "1":
-                acc = self.mul(acc, x)
-        return acc
+        """x^e for a fixed exponent: the field kernels' pow, one launch of
+        the whole chain on the card (ff/kernels.py:mont_pow); e = 0 gives
+        ones."""
+        return self.kern.pow(x, e, self.params)
 
     def inv(self, x):
         """Fermat inversion x^(p-2); 0 -> 0."""

@@ -2,10 +2,12 @@
 version.
 
 `mont_mul` and `mont_sqr` run csrc/bigmont.cu:bigmont_ew (the port of
-sppark_tpu/ff/bigmont.py:_ew_call_cached).  On a CUDA tensor a wrapper
-launches the kernel on the current stream or raises; on a CPU tensor it
-computes the same function with the plain version.  Each launch adds one to
-`launches["bigmont_ew"]`.
+sppark_tpu/ff/bigmont.py:_ew_call_cached); `mont_pow` runs the same file's
+bigmont_pow, a whole fixed-exponent chain of those products in one launch
+(the field's Fermat inversion).  On a CUDA tensor a wrapper launches its
+kernel on the current stream or raises; on a CPU tensor it computes the
+same function with the plain version.  Each launch adds one to
+`launches[kernel]`.
 
 An element is n32 32-bit words, limb-major `(n32, *batch)`, held as the u32
 bit pattern in an int32 tensor; R = 2^(32 n32), so the Montgomery words
@@ -32,7 +34,7 @@ from ..util.errors import SpparkError
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
 
-launches = {"bigmont_ew": 0}
+launches = {"bigmont_ew": 0, "bigmont_pow": 0}
 
 
 def reset_launches() -> None:
@@ -136,10 +138,34 @@ def mont_sqr_plain(x: torch.Tensor, params: FieldParams) -> torch.Tensor:
     return mont_mul_plain(x, x, params)
 
 
+def _one_words(params: FieldParams, x: torch.Tensor) -> torch.Tensor:
+    """The Montgomery one in x's shape."""
+    col = words32(torch.tensor(int_words(params.one_mont, x.shape[0]),
+                               dtype=torch.int64, device=x.device))
+    return col.reshape((-1,) + (1,) * (x.ndim - 1)).expand(x.shape).clone()
+
+
+def mont_pow_plain(x: torch.Tensor, e: int,
+                   params: FieldParams) -> torch.Tensor:
+    """Plain version of bigmont_pow: x^e, Montgomery form in and out, MSB
+    first (pow_byref, ff/pow.hpp); e = 0 gives the Montgomery one."""
+    if e == 0:
+        return _one_words(params, x)
+    acc = x
+    for bit in bin(e)[3:]:
+        acc = mont_sqr_plain(acc, params)
+        if bit == "1":
+            acc = mont_mul_plain(acc, x, params)
+    return acc
+
+
 # -- kernel --------------------------------------------------------------------
 
 _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_SIGNATURES = {"bigmont_ew": [_I, _I, _VP, _VP, _VP, _LL, _VP, _VP]}
+_SIGNATURES = {"bigmont_ew": [_I, _I, _VP, _VP, _VP, _LL, _VP, _VP],
+               "bigmont_pow": [_I, _VP, _VP, _LL, _VP, _I, _VP, _VP]}
+#: the largest exponent bigmont_pow takes: 12 words (p - 2 of every field)
+EXP_WORDS = 12
 
 
 def _lib() -> ctypes.CDLL:
@@ -201,6 +227,33 @@ def _ew(x: torch.Tensor, y: torch.Tensor, params: FieldParams,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _exp_words(e: int) -> np.ndarray:
+    return np.asarray(int_words(e, EXP_WORDS), dtype=np.uint32)
+
+
+def _pow(x: torch.Tensor, e: int, params: FieldParams) -> torch.Tensor:
+    if not 0 <= e < 1 << (32 * EXP_WORDS):
+        raise ValueError(f"bigmont_pow: exponent {e} is not in [0, "
+                         f"2^{32 * EXP_WORDS})")
+    check_words("bigmont_pow", params, x)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    n = x.numel() // x.shape[0]
+    if n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = _lib().bigmont_pow(
+            x.shape[0], x.data_ptr(), out.data_ptr(), n,
+            _exp_words(e).ctypes.data, e.bit_length(),
+            field_consts(params).ctypes.data,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise SpparkError(rc, f"bigmont_pow: CUDA error {rc}")
+    launches["bigmont_pow"] += 1
+    return out
+
+
 def mont_mul(x: torch.Tensor, y: torch.Tensor,
              params: FieldParams) -> torch.Tensor:
     """x * y * R^-1 mod p lane by lane, batch shapes broadcast."""
@@ -216,14 +269,23 @@ def mont_sqr(x: torch.Tensor, params: FieldParams) -> torch.Tensor:
     return _ew(x, x, params, 1)
 
 
+def mont_pow(x: torch.Tensor, e: int, params: FieldParams) -> torch.Tensor:
+    """x^e lane by lane for a fixed exponent 0 <= e < 2^384, Montgomery
+    form in and out: ONE launch for the whole chain."""
+    if x.device.type == "cpu":
+        return mont_pow_plain(x, e, params)
+    return _pow(x, e, params)
+
+
 class FieldKernels(NamedTuple):
-    """The two field functions a BigMontField calls."""
+    """The three field functions a BigMontField calls."""
 
     mul: Callable
     sqr: Callable
+    pow: Callable
 
 
-#: what the entry points use: the kernel on CUDA tensors
-KERNELS = FieldKernels(mont_mul, mont_sqr)
-#: the plain versions on any device, to hold the kernel against
-PLAIN = FieldKernels(mont_mul_plain, mont_sqr_plain)
+#: what the entry points use: the kernels on CUDA tensors
+KERNELS = FieldKernels(mont_mul, mont_sqr, mont_pow)
+#: the plain versions on any device, to hold the kernels against
+PLAIN = FieldKernels(mont_mul_plain, mont_sqr_plain, mont_pow_plain)

@@ -308,6 +308,28 @@ def test_mont_kernel_vs_plain(dev, curve):
     assert FK.launches["bigmont_ew"] == before + 2
 
 
+@pytest.mark.parametrize("field", ["test_bm64_fp", "bn254_fp",
+                                   "bls12_381_fp"])      # n32 = 2, 8, 12
+def test_pow_kernel_vs_plain(dev, field):
+    """bigmont_pow against mont_pow_plain at 1, 31, 32, 33 and 2^16 lanes
+    (prefixes of one input with 0, 1, p - 1 and R mod p planted) for e = 0,
+    1, 2, p - 2 and (p + 1) / 4: one launch each."""
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+
+    fp = params.get_field(field)
+    x = _canon_words(get_field_ops(fp), 1 << 16, 3, dev)
+    p = fp.modulus
+    for e in (0, 1, 2, p - 2, (p + 1) // 4):
+        want = FK.mont_pow_plain(x, e, fp)
+        for n in (1, 31, 32, 33, 1 << 16):
+            before = FK.launches["bigmont_pow"]
+            got = FK.mont_pow(x[:, :n], e, fp)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want[:, :n]), (e, n)
+            assert FK.launches["bigmont_pow"] == before + 1
+
+
 @pytest.mark.parametrize("curve", MSM_CURVES)
 def test_point_kernels_vs_plain(dev, curve):
     from sppark_tpu_torch.ec import kernels as EK
@@ -376,6 +398,29 @@ def test_fp2_point_kernels_vs_plain(dev, curve):
     assert {k: v - before[k] for k, v in EK.fp2_launches.items()} == {
         "ec_fp2_xyzz_madd": 2, "ec_fp2_xyzz_add": 1, "ec_fp2_xyzz_dbl": 1,
         "ec_fp2_pair_prep": 0, "ec_fp2_pair_finish": 0}
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_fp2_madd_lane_pair_warps(dev, curve):
+    """The madd runs each bucket on a lane pair, 16 buckets a warp: warps
+    with exactly one doubling pair and one pair at infinity (the affine
+    point, or the bucket), and 1, 17 and 65 lanes, equal their plain
+    versions word for word."""
+    from sppark_tpu_torch.ec import kernels as EK
+
+    p, a, _ = _point_cases(curve, 96, dev)
+    cases = []
+    for inf in (35, 36):
+        lanes = list(range(16))
+        lanes[5], lanes[9] = 33, inf
+        cases.append(lanes)
+    cases += [list(range(n)) for n in (1, 17, 65)]
+    for lanes in cases:
+        pw, aw = (tuple(c[:, lanes] for c in t) for t in (p, a))
+        got = EK.xyzz_madd(curve, pw, aw)
+        torch.cuda.synchronize()
+        want = EK.xyzz_madd_plain(curve, pw, aw)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), lanes
 
 
 @pytest.mark.parametrize("curve,n", [("test_bm64_g2", 1 << 10),
@@ -483,7 +528,9 @@ def test_pair_kernels_vs_plain(dev, curve):
 def test_tree_msm_on_card(dev, curve, n):
     """mode="tree" through the entry point equals the slab MSM and
     msm_naive on the same input (all-equal scalars too); the pair kernels,
-    the integrate's add and dbl and the Montgomery multiply launched."""
+    the integrate's add and dbl and the Montgomery multiply launched, and
+    bigmont_pow once per level (one prep launch each) and once for
+    to_affine."""
     import random
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
@@ -507,10 +554,12 @@ def test_tree_msm_on_card(dev, curve, n):
     got = tree.invoke(sc)
     counts = {k: v for k, v in {**EK.launches, **EK.fp2_launches}.items()
               if v}
+    pows = FK.launches["bigmont_pow"]
     assert got == MSMContext(curve, n).invoke(sc, points=pts)
     assert got == msm_naive(cp, pts, sc)
     assert sorted(counts) == sorted(EK.kernel_name(op, curve)
                                     for op in EK.TREE_OPS)
     assert FK.launches["bigmont_ew"] > 0
+    assert pows == counts[EK.kernel_name("pair_prep", curve)] + 1
     k = rng.randrange(r)
     assert tree.invoke([k] * n) == msm_naive(cp, pts, [k] * n)
