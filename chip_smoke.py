@@ -52,12 +52,14 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
  13. times the wide NTT, the LDE and each wide kernel alone at its 2^26
      shapes, beside the plain versions (on a 2^20-element slice) and the
      bounds, and reads the peak device memory of one NTT;
- 14. holds the three fp2 point kernels (ec_fp2_xyzz_madd, on a lane pair
-     of threads per bucket, / add / dbl) against their plain versions on
-     test_bm64_g2, BN254, BLS12-381 and BLS12-377 G2 (nonresidues 7, -1,
-     -1, -5), exactly, with the planted lanes of phase 6, point-major slab
-     rows, a warp with no special lane, warps of 16 buckets with exactly
-     one doubling pair and one pair at infinity, and 1, 17 and 65 lanes;
+ 14. holds the three fp2 point kernels (ec_fp2_xyzz_madd and _add, on a
+     lane pair of threads per point, / dbl) against their plain versions
+     on test_bm64_g2, BN254, BLS12-381 and BLS12-377 G2 (nonresidues 7,
+     -1, -1, -5), exactly, with the planted lanes of phase 6, point-major
+     slab rows, a warp with no special lane, warps of 16 buckets with
+     exactly one doubling pair and one pair at infinity (madd), warps of
+     16 lanes with exactly one doubling, infinite or cancelling lane
+     (add), and 1, 17 and 65 lanes;
  15. drives the G2 main path, BLS12-381 G2 2^23 (the reference bench's G2
      size) through `MSMContext.set_points` + `invoke`, with the launch
      counts set to 0 just before and read just after: 2^11 base points
@@ -77,6 +79,9 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      infinities, doubling, cancellation and a y == 0 doubling, a warp with
      no doubling lane, one with one, one of all doubling lanes, on
      limb-major operands and on the even/odd views a tree level reads;
+     for the lane-pair ec_fp2_pair_finish also warps of 16 chords with
+     exactly one tangent or copy lane and 1, 17 and 65 lanes, on each
+     view;
  18. drives the segmented-tree MSM (mode="tree") through `MSMContext`:
      BLS12-381 G1 2^24 on phase 7's input, equal to its exact result, with
      the launch counts set to 0 just before and read just after, the
@@ -1245,6 +1250,15 @@ def pair_warps():
     return out
 
 
+def one_special_warps(specials):
+    """Lane selections for the lane-pair add and pair finish: for each
+    (what, lane), a warp of 16 lanes, the generic lanes 0..15 with that
+    one lane in slot 5; then 1, 17 and 65 lanes."""
+    out = [(f"a warp with {what}", [*range(5), lane, *range(6, 16)])
+           for what, lane in specials]
+    return out + [(f"{n} lanes", list(range(n))) for n in (1, 17, 65)]
+
+
 def g2_base(curve, nbase, seed):
     """(G, [r_j], [r_j G]): nbase uniform points of the prime-order
     subgroup, drawn as r_j G from one cofactor-cleared point G with seeded
@@ -1334,6 +1348,13 @@ def g2_phases(dev, card, rate):
             pw, aw = (tuple(c[:, lanes] for c in t) for t in (p, a))
             same("ec_fp2_xyzz_madd", EK.xyzz_madd(curve, pw, aw),
                  EK.xyzz_madd_plain(curve, pw, aw), f"{curve} madd, {what}")
+        # so does the add: warps with exactly one special lane
+        for what, lanes in one_special_warps(
+                (("one doubling lane", 33), ("q at infinity", 35),
+                 ("p at infinity", 36), ("one cancelling lane", 34))):
+            pw, qw = (tuple(c[:, lanes] for c in t) for t in (p, q))
+            same("ec_fp2_xyzz_add", EK.xyzz_add(curve, pw, qw),
+                 EK.xyzz_add_plain(curve, pw, qw), f"{curve} add, {what}")
     seconds["14 kernels vs plain"] = time.perf_counter() - t0
 
     # -- 15. main path: BLS12-381 G2 2^23 --------------------------------------
@@ -1559,6 +1580,20 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
                      EK.affine_pair_finish(curve, lk, rk, inv[:, k],
                                            flags[k]),
                      tuple(c[:, k] for c in want), f"{curve} {what}, {warp}")
+        if get_curve(curve).degree == 1:
+            continue
+        # the fp2 finish runs a pair on a lane pair, 16 lanes a warp:
+        # chords with exactly one tangent or copy lane, on every view
+        for warp, lanes in one_special_warps(
+                (("one tangent lane", 33), ("one USE_R lane", 35),
+                 ("one USE_L lane", 36))):
+            lw, rw = (tuple(c[:, lanes] for c in t) for t in (l, r))
+            args = (inv[:, lanes], flags[lanes])
+            wk = EK.affine_pair_finish_plain(curve, lw, rw, *args)
+            for what, lv, rv in [("limb-major", lw, rw)] + pair_views(lw,
+                                                                      rw):
+                same(finish, EK.affine_pair_finish(curve, lv, rv, *args),
+                     wk, f"{curve} {what}, {warp}")
     seconds["17 pair kernels vs plain"] = time.perf_counter() - t0
 
     # -- 18. the tree MSM: G1 2^24, then G2 --------------------------------

@@ -19,14 +19,14 @@
 // What bounds it on the card: an fp2 product is 3 base products and 5-9
 // additions, so a madd is ~30 base products, ~120 n32^2 32-bit
 // operations, against 20 n32 words moved per lane: the integer multiply
-// rate bounds it.  One thread per bucket (mont::Fp2<N>, as ec_fp2_add.cu
-// and ec_fp2_dbl.cu still run) holds an Fp2<12> in 24 registers and ~10
-// of them live, so it used all 255 registers, spilled, and ran at 0.139
-// of that bound.  Here the element is mont::Fp2Pair<N>, the reference's
-// warp-lane-pair fp2 (ff/alt_bn128-fp2.hpp:25-60): thread 2i holds c0 of
-// every coordinate of bucket i, thread 2i + 1 holds c1 (it reads rows
-// n32 .. 2 n32 - 1 of each coordinate), so each thread keeps half the
-// words; a product is two base products with one reduction a thread
+// rate bounds it.  One thread per bucket (mont::Fp2<N>, as ec_fp2_dbl.cu
+// still runs) holds an Fp2<12> in 24 registers and ~10 of them live, so
+// it used all 255 registers, spilled, and ran at 0.139 of that bound.
+// Here, as in ec_fp2_add.cu and ec_fp2_pair.cu's finish, the element is
+// mont::Fp2Pair<N>, the reference's warp-lane-pair fp2
+// (ff/alt_bn128-fp2.hpp:25-60): thread 2i holds c0 of every coordinate of
+// bucket i, thread 2i + 1 holds c1 (it reads rows n32 .. 2 n32 - 1 of
+// each coordinate), so each thread keeps half the words; a product is two base products with one reduction a thread
 // (mont.cuh:dot) after a shuffle of the operands.  Every branch of the
 // formulas is per bucket and its zero tests read both coefficients, so
 // both threads of a pair branch together and the pair-masked shuffles

@@ -1,23 +1,28 @@
-// G2 (fp2) batch-affine pair add kernels for Hopper (sm_90a), one pair of
-// affine points per thread: ec_fp2_pair_prep and ec_fp2_pair_finish
-// replace sppark_tpu/ec/pallas_ops.py:_pair_prep_call and
-// _pair_finish_call for degree-2 curves (_KCtx with degree 2,
-// pallas_ops.py:89-220), the two halves of one level of the
-// segmented-tree MSM (msm/tree.py) around its batch inversion, which for
-// fp2 runs through the norm in the base field.
+// G2 (fp2) batch-affine pair add kernels for Hopper (sm_90a):
+// ec_fp2_pair_prep and ec_fp2_pair_finish replace
+// sppark_tpu/ec/pallas_ops.py:_pair_prep_call and _pair_finish_call for
+// degree-2 curves (_KCtx with degree 2, pallas_ops.py:89-220), the two
+// halves of one level of the segmented-tree MSM (msm/tree.py) around its
+// batch inversion, which for fp2 runs through the norm in the base field.
 //
 // The formulas and the case order are pair.cuh's, shared with the G1
 // kernels of ec_pair.cu; the operand views and the launch are
-// ec_kernel.cuh's.  The element is mont::Fp2<n32> (mont.cuh): a coordinate
-// is (2 n32, n) words, c0's then c1's, so infinity is all 4 n32 words of
-// (x, y) zero.  Widths: n32 = 2 (test_bm64_g2), 8 (bn254_g2), 12
-// (bls12_381_g2, bls12_377_g2).
+// ec_kernel.cuh's.  A coordinate is (2 n32, n) words, c0's then c1's, so
+// infinity is all 4 n32 words of (x, y) zero.  Widths: n32 = 2
+// (test_bm64_g2), 8 (bn254_g2), 12 (bls12_381_g2, bls12_377_g2).
 //
 // What bounds them on the card: prep moves five fp2 coordinates per lane
 // for six base additions, so memory bounds it; finish does two fp2
 // products and a squaring (about 8 base products) against seven
-// coordinates moved, so the integer multiply rate bounds it at n32 = 12.
-// One thread per pair holds both coefficients, as the fp2 xyzz kernels do.
+// coordinates moved, about even between the integer multiply rate and
+// memory at n32 = 12.  Prep runs one pair a thread (mont::Fp2<N>).  The
+// finish runs one pair on a lane pair of threads (mont::Fp2Pair<N>, as
+// ec_fp2_madd.cu): each thread keeps one coefficient of its five fp2
+// inputs, where one thread a pair held all ten (232 registers).  The
+// flag word, one per lane, is read by both threads, so the branch on it
+// is taken by the pair together.  On a tree's first level it reads its
+// point operands through a shared-memory tile of level 0's rows
+// (ec_kernel.cuh).
 
 #include "ec_kernel.cuh"
 
@@ -36,6 +41,6 @@ extern "C" int ec_fp2_pair_prep(int n32, const void* views, void* out,
 extern "C" int ec_fp2_pair_finish(int n32, const void* views, void* out,
                                   long long n, const void* consts,
                                   void* stream) {
-    return ec::dispatch<mont::Fp2, ec::PAIR_FINISH>(n32, views, 6, out, n,
-                                                    consts, stream);
+    return ec::dispatch<mont::Fp2Pair, ec::PAIR_FINISH>(n32, views, 6, out,
+                                                        n, consts, stream);
 }

@@ -1,19 +1,29 @@
 // The point kernels' body and launch, shared by ec_xyzz.cu and
-// ec_pair.cu (G1, element mont::Fp<N>) and ec_fp2_*.cu (G2, element
-// mont::Fp2<N>, or mont::Fp2Pair<N> for the madd): one point (or pair) per
-// thread, or per lane pair of threads for Fp2Pair (Elem<E>::THREADS), the
-// formulas of xyzz.cuh and pair.cuh.
+// ec_pair.cu (G1, element mont::Fp<N>) and ec_fp2_*.cu (G2): one point (or
+// pair) per thread, or per lane pair of threads (Elem<E>::THREADS), the
+// formulas of xyzz.cuh and pair.cuh.  The G2 madd, add and pair finish run
+// on the lane pair (mont::Fp2Pair<N>: thread 2i holds c0 of lane i, thread
+// 2i + 1 holds c1); the G2 dbl and pair prep keep one thread a lane
+// (mont::Fp2<N>).
 //
 // Operands: each input coordinate is a (W, n) view, W = N words for Fp<N>
-// and 2 N for Fp2<N> (c0's words, then c1's), given by a pointer and two
-// strides in words, `sw` between words and `sl` between lanes, so the
-// kernels read limb-major tensors (sw = n, sl = 1), point-major rows of the
-// MSM's slab or of the tree's level 0 (sw = 1, sl = 2 W; the even or odd
-// rows: sl = 4 W), the even or odd lanes of a tree level (sw = m, sl = 2)
-// and broadcast constants (sl = 0) without a copy; the finish's flag word
-// is a view of one word.  The output is one contiguous (rows, n) block,
-// stored coalesced: (4 W, n) for the xyzz ops, den then the flags, (W + 1,
-// n), for the pair prep, (x, y), (2 W, n), for the pair finish.
+// and 2 N for the fp2 elements (c0's words, then c1's), given by a pointer
+// and two strides in words, `sw` between words and `sl` between lanes, so
+// the kernels read limb-major tensors (sw = n, sl = 1), point-major rows of
+// the MSM's slab or of the tree's level 0 (sw = 1, sl = 2 W; the even or
+// odd rows: sl = 4 W), the even or odd lanes of a tree level (sw = m,
+// sl = 2) and broadcast constants (sl = 0) without a copy; the finish's
+// flag word is a view of one word.  The output is one contiguous (rows, n)
+// block, stored coalesced: (4 W, n) for the xyzz ops, den then the flags,
+// (W + 1, n), for the pair prep, (x, y), (2 W, n), for the pair finish.
+//
+// The lane-pair finish on a tree's first level, whose four point operands
+// are the even and odd point-major rows of level 0 (lane i's x1, y1, x2,
+// y2 are 4 W contiguous words), first copies the block's tile of rows into
+// shared memory with coalesced 16-byte cp.async copies, each row padded by
+// 16 bytes so that a warp's reads spread over the banks; each thread then
+// reads its coefficient's words from there.  Read straight from the rows,
+// the 16 lanes of a warp hit 16 places 8 N words apart on every word.
 //
 // Each entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
@@ -42,6 +52,7 @@ struct Args {
     uint32_t* out;
     long long n;
     mont::Consts<N> c;
+    bool rows;      // the finish's point operands are contiguous rows
 };
 
 template <int N>
@@ -101,15 +112,90 @@ __device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
     store(out, n, i, row + (mont::pair_odd() ? N : 0), a.v);
 }
 
+// 16 bytes from global to shared memory, asynchronously (cp.async; the
+// caller waits with copy_wait)
+__device__ __forceinline__ void copy16(uint32_t* dst, const uint32_t* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (uint32_t)__cvta_generic_to_shared(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                     : "memory");
+}
+
+// an element from shared memory: this thread's N words at t, read 16
+// bytes at a time where N allows
+template <int N>
+__device__ __forceinline__ mont::Fp2Pair<N> load_tile(const uint32_t* t) {
+    mont::Fp2Pair<N> r;
+    if constexpr (N % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < N / 4; q++) {
+            uint4 v = reinterpret_cast<const uint4*>(t)[q];
+            r.v.w[4 * q] = v.x;
+            r.v.w[4 * q + 1] = v.y;
+            r.v.w[4 * q + 2] = v.z;
+            r.v.w[4 * q + 3] = v.w;
+        }
+    } else {
+        r.v = mont::from_words<N>(t);
+    }
+    return r;
+}
+
+// the pair finish of lane i from its point operands: inv and the flag
+// word from their views, (x, y) to the output
+template <class E>
+__device__ __forceinline__ void finish(const Args<mont::Elem<E>::BASE>& a,
+                                       long long i, const E& x1, const E& y1,
+                                       const E& x2, const E& y2) {
+    constexpr long long W = mont::Elem<E>::WORDS;
+    E ox, oy;
+    pair::finish(x1, y1, x2, y2, load<E>(a.in[4], i),
+                 a.in[5].p[i * a.in[5].sl], ox, oy, a.c);
+    store(a.out, a.n, i, 0, ox);
+    store(a.out, a.n, i, W, oy);
+}
+
+// __launch_bounds__ gives ptxas no minimum of blocks an SM, so it picks
+// each kernel's registers itself.  A minimum of 1, 3 or 4 blocks was timed
+// on the H100 (variants.py, PERF.md): none ran faster than ptxas's own
+// choice for the lane-pair add and finish, and a minimum of 1 gave the G1
+// madd 214 registers where ptxas picks 166, and 13% more time.
 template <class E, int OP>
 __global__ void __launch_bounds__(THREADS)
 ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
     // lane i: one thread, or the lane pair (2i, 2i + 1), which exits or
     // runs on together
-    long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) /
-                  mont::Elem<E>::THREADS;
-    if (i >= a.n) return;
+    constexpr int T = mont::Elem<E>::THREADS;
+    long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) / T;
     constexpr long long W = mont::Elem<E>::WORDS;
+    if constexpr (OP == PAIR_FINISH && T == 2) {
+        // the block's LANES rows of 4 W words, each padded by 4 words
+        constexpr int N = mont::Elem<E>::BASE, LANES = THREADS / T;
+        constexpr int R = 4 * W, S = R + 4;
+        __shared__ __align__(16) uint32_t tile[LANES * S];
+        if (a.rows) {
+            long long i0 = (long long)blockIdx.x * LANES;
+            long long lanes = a.n - i0 < LANES ? a.n - i0 : LANES;
+            const uint32_t* src = a.in[0].p + i0 * R;
+            for (int k = threadIdx.x; k < lanes * (R / 4); k += THREADS)
+                copy16(tile + (k / (R / 4)) * S + (k % (R / 4)) * 4,
+                       src + 4 * k);
+            copy_wait();
+            __syncthreads();
+            if (i >= a.n) return;
+            const uint32_t* t = tile + (threadIdx.x / T) * S +
+                                (mont::pair_odd() ? N : 0);
+            finish<E>(a, i, load_tile<N>(t), load_tile<N>(t + W),
+                      load_tile<N>(t + 2 * W), load_tile<N>(t + 3 * W));
+            return;
+        }
+    }
+    if (i >= a.n) return;
     if (OP == PAIR_PREP) {
         E den;
         uint32_t f = pair::prep(load<E>(a.in[0], i), load<E>(a.in[1], i),
@@ -120,13 +206,8 @@ ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
         return;
     }
     if (OP == PAIR_FINISH) {
-        E ox, oy;
-        pair::finish(load<E>(a.in[0], i), load<E>(a.in[1], i),
-                     load<E>(a.in[2], i), load<E>(a.in[3], i),
-                     load<E>(a.in[4], i), a.in[5].p[i * a.in[5].sl], ox, oy,
-                     a.c);
-        store(a.out, a.n, i, 0, ox);
-        store(a.out, a.n, i, W, oy);
+        finish<E>(a, i, load<E>(a.in[0], i), load<E>(a.in[1], i),
+                  load<E>(a.in[2], i), load<E>(a.in[3], i));
         return;
     }
     xyzz::Point<E> r;
@@ -159,6 +240,14 @@ void launch(const long long* views, int n_in, uint32_t* out, long long n,
     a.out = out;
     a.n = n;
     a.c = mont::make_consts<N>(consts);
+    // the lane-pair finish stages level 0's rows: x1, y1, x2, y2 of lane i
+    // at in[0].p + 4 W i, 16-byte aligned
+    constexpr long long W = mont::Elem<E>::WORDS;
+    a.rows = OP == PAIR_FINISH && mont::Elem<E>::THREADS == 2 &&
+             (views[0] & 15) == 0;
+    for (int k = 0; k < 4; k++)
+        a.rows = a.rows && views[3 * k] == views[0] + 4 * k * W &&
+                 views[3 * k + 1] == 1 && views[3 * k + 2] == 4 * W;
     long long threads = n * mont::Elem<E>::THREADS;
     unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
     ec_kernel<E, OP><<<blocks, THREADS, 0, s>>>(a);

@@ -1,8 +1,9 @@
 // xyzz point formulas for the kernels of ec_xyzz.cu and ec_fp2_*.cu
-// (the role of sppark's ec/xyzz_t.hpp), one point per thread, every
-// coordinate in registers.  One text serves G1 and G2: the formulas are
-// templates over the coordinate's element type E, mont::Fp<N> or
-// mont::Fp2<N>, whose ops are the overloads of mont.cuh.
+// (the role of sppark's ec/xyzz_t.hpp), one point per thread (or per lane
+// pair of threads), every coordinate in registers.  One text serves G1 and
+// G2: the formulas are templates over the coordinate's element type E,
+// mont::Fp<N>, mont::Fp2<N> or mont::Fp2Pair<N> (the G2 madd and add),
+// whose ops are the overloads of mont.cuh.
 //
 // A point is (X, Y, ZZ, ZZZ) with x = X/ZZ, y = Y/ZZZ; infinity is ZZ == 0.
 // Each function gives, word for word, the result of the TPU kernel's select

@@ -423,6 +423,36 @@ def test_fp2_madd_lane_pair_warps(dev, curve):
         assert all(torch.equal(u, v) for u, v in zip(got, want)), lanes
 
 
+def _lane_pair_warps(specials):
+    """Lane selections for a kernel that runs a lane on a pair of threads,
+    16 lanes a warp: for each special lane, a warp of the generic lanes
+    0..15 with that one lane in slot 5; then 1, 17 and 65 lanes, whose
+    threads end inside a block."""
+    out = []
+    for s in specials:
+        lanes = list(range(16))
+        lanes[5] = s
+        out.append(lanes)
+    return out + [list(range(n)) for n in (1, 17, 65)]
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_fp2_add_lane_pair_warps(dev, curve):
+    """The add runs each lane on a lane pair, 16 lanes a warp: warps with
+    exactly one doubling lane (p == q), one lane with q at infinity, one
+    with p at infinity, one cancelling lane (p == -q), and 1, 17 and 65
+    lanes, equal their plain versions word for word."""
+    from sppark_tpu_torch.ec import kernels as EK
+
+    p, _, q = _point_cases(curve, 96, dev)
+    for lanes in _lane_pair_warps((33, 35, 36, 34)):
+        pw, qw = (tuple(c[:, lanes] for c in t) for t in (p, q))
+        got = EK.xyzz_add(curve, pw, qw)
+        torch.cuda.synchronize()
+        want = EK.xyzz_add_plain(curve, pw, qw)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), lanes
+
+
 @pytest.mark.parametrize("curve,n", [("test_bm64_g2", 1 << 10),
                                      ("bls12_381_g2", 64)])
 def test_g2_msm_on_card(dev, curve, n):
@@ -521,6 +551,40 @@ def test_pair_kernels_vs_plain(dev, curve):
             assert all(torch.equal(g, w[:, k]) for g, w in zip(got, want))
     assert counts[name] == before + 12
     assert sorted(set(flags.tolist())) == [0, 1, 3, 4, 8]
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_fp2_pair_finish_lane_pair_warps(dev, curve):
+    """The fp2 finish runs each pair on a lane pair, 16 lanes a warp:
+    warps of chords with exactly one tangent lane, one lane that copies r
+    (USE_R) or one that copies l (USE_L), and 1, 17 and 65 lanes, on
+    limb-major operands and on the even and odd point-major rows of a
+    tree's level 0, equal their plain versions word for word."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm.tree import batch_inv_flat
+
+    l, r = _pair_cases(curve, 128, dev)
+    den, flags = EK.affine_pair_prep_plain(curve, l, r)
+    inv = batch_inv_flat(get_curve_ops(curve, FK.PLAIN).F, den)
+    specials = (33, 35, 36)
+    assert [int(flags[k]) for k in specials] == [
+        EK.ACTIVE | EK.DBL, EK.USE_R, EK.USE_L]
+    assert bool((flags[:32] == EK.ACTIVE).all())
+    for lanes in _lane_pair_warps(specials):
+        lw, rw = (tuple(c[:, lanes] for c in t) for t in (l, r))
+        args = (inv[:, lanes], flags[lanes])
+        want = EK.affine_pair_finish_plain(curve, lw, rw, *args)
+        W, k = lw[0].shape
+        rows = torch.stack([torch.cat(lw).T, torch.cat(rw).T],
+                           1).reshape(2 * k, 2 * W)
+        for lv, rv in ((lw, rw),
+                       ((rows[0::2, :W].T, rows[0::2, W:].T),
+                        (rows[1::2, :W].T, rows[1::2, W:].T))):
+            got = EK.affine_pair_finish(curve, lv, rv, *args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), lanes
 
 
 @pytest.mark.parametrize("curve,n", [("bls12_381", 1 << 10),
