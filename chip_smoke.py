@@ -82,16 +82,32 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      for the lane-pair ec_fp2_pair_finish also warps of 16 chords with
      exactly one tangent or copy lane and 1, 17 and 65 lanes, on each
      view;
+ 17b. holds the batch inversion's kernels (bigmont_inv_up, bigmont_inv_down)
+     against their plain versions on the same inputs, in degree 1 on
+     test_bm64, Pasta and BLS12-381 Fp and in degree 2 on the BLS12-381,
+     BN254 and BLS12-377 G2 fields (nonresidues -1, -1, -5), at 1, 31,
+     4095, 4097 and 2^16 + 3 lanes (T C = 4096 lanes a block) with zero,
+     (0, c1) and (c0, 0) lanes,
+     and the three-launch pipeline (up, bigmont_pow, down) against
+     mont_batch_inv_plain, exactly; then a * a^-1 == 1 against the big-int
+     oracle on 4096 lanes of BLS12-381 Fp and Fp2;
  18. drives the segmented-tree MSM (mode="tree") through `MSMContext`:
      BLS12-381 G1 2^24 on phase 7's input, equal to its exact result, with
      the launch counts set to 0 just before and read just after, the
      chunked invoke, and at 2^10 `msm_naive` with planted and all-equal
      scalars, Montgomery-form scalars and the plain path on the card; then
      BLS12-381 G2 2^23 on phase 15's input, equal to its exact result;
-     each tree launched bigmont_pow once per level and once for to_affine;
+     each tree launched bigmont_inv_up, bigmont_pow and bigmont_inv_down
+     once per level and once for to_affine;
  19. times both tree MSMs, profiles each invoke (peak memory, busy share,
-     phases, kernels) and times each pair kernel alone at its level-1
-     shape, and bigmont_pow at one lane (x^(p - 2), every inversion's
+     phases, kernels; per invoke the launches and device ms of bigmont_ew,
+     the batch inversion's kernels and the elementwise kernels, and
+     msm.tree_levels' device and host ms) and times each pair kernel alone
+     at its level-1 shape; the batch inversion at level 1 on the main
+     path's denominators (each kernel alone, the plain versions on a 2^20
+     lane slice held against the kernels there, the pipeline by events,
+     and the pipeline and the product tree it replaced by the wall clock);
+     and bigmont_pow at one lane (x^(p - 2), every inversion's
      shape), beside its plain version and its bound, and prints
      bigmont_pow's chain and its single-thread floor, and the same
      inversion timed as the chain of bigmont_ew launches it replaced;
@@ -129,7 +145,8 @@ Montgomery product (4 n32^2) and an add and a sub (2 n32 each); an fp2
 product 3 products and its additions, an fp2 squaring 2 squarings, a
 product and its additions (fp2_ops); a mont32 butterfly 15 operations
 counted from csrc/ntt_mont32.cu; bigmont_pow the squarings and products
-of its windowed chain (pow_chain).
+of its windowed chain (pow_chain); the batch inversion's kernels the
+products, squarings and additions of their schedule (inv_counts).
 Any failed check raises, so the run exits non-zero and prints no last line.
 It exits non-zero at once without a CUDA device or without the package.
 """
@@ -551,9 +568,9 @@ def kernel_group(name):
     if m:
         return ("ec_" if m.group(1) == "Fp" else "ec_fp2_") + \
             EC_OPS[int(m.group(2))]
-    for kernel in ("ew", "pow"):
-        if f"{kernel}_kernel<" in name:
-            return "bigmont_" + kernel
+    for kernel in ("ew_kernel", "pow_kernel", "inv_up", "inv_down"):
+        if f"{kernel}<" in name:
+            return "bigmont_" + kernel.replace("_kernel", "")
     return name[:60]
 
 
@@ -1480,7 +1497,8 @@ def pair_level1(curve, ctx, wd, M, S, A):
     A: the 32-bit operations of one product, squaring and addition of the
     coordinate field.  prep counts 3 additions per lane; finish 2 M + S +
     5 A per chord lane and 2 M + 2 S + 6 A per tangent lane, nothing on the
-    lanes that only copy or zero.  Returns the cases for time_kernels."""
+    lanes that only copy or zero.  Returns (the level's denominators, the
+    cases for time_kernels)."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.msm import tree
@@ -1504,7 +1522,7 @@ def pair_level1(curve, ctx, wd, M, S, A):
           f"{tangent} tangent, {lanes - chord - tangent} copy or zero",
           flush=True)
     pre = EK.kernel_name("pair_", curve)
-    return [
+    return den, [
         (pre + "prep", lanes, lambda: EK.affine_pair_prep(curve, l, r),
          lambda: EK.affine_pair_prep_plain(curve, l, r),
          (5 * 4 * W + 4) * lanes, 3 * A * lanes),
@@ -1514,6 +1532,193 @@ def pair_level1(curve, ctx, wd, M, S, A):
          (7 * 4 * W + 4) * lanes,
          chord * (2 * M + S + 5 * A) + tangent * (2 * M + 2 * S + 6 * A)),
     ]
+
+
+INV_G2_CURVES = ("bls12_381_g2", "bn254_g2", "bls12_377_g2")  # nr -1, -1, -5
+INV_LANES = (1, 31, 4095, 4097, (1 << 16) + 3)  # T C = 4096 lanes a block
+INV_ORACLE_LANES = 4096
+INV_SLICE = 1 << 20     # the plain versions' slice of a level: 256 blocks
+
+
+def inv_inputs(F, n, rng, dev, degree):
+    """(degree n32, n) canonical words with zero lanes at 0, 7 and n - 1,
+    and in degree 2 a (0, c1) lane at 3 and a (c0, 0) lane at 5."""
+    import torch
+    x = torch.cat([rand_canon(F, n, rng, dev) for _ in range(degree)])
+    x[:, [0, 7, n - 1]] = 0
+    if degree == 2:
+        x[:F.n32, 3] = 0
+        x[F.n32:, 5] = 0
+    return x
+
+
+def batch_inv_checks(dev, same):
+    """Phase 17b: bigmont_inv_up and bigmont_inv_down against their plain
+    versions, each on the same inputs, at INV_LANES (the up kernel's four
+    arrays; the down kernel on the plain up arrays and bigmont_pow's block
+    inverses), and the three-launch pipeline against mont_batch_inv_plain,
+    in degree 1 on EC_CURVES' fields and degree 2 on three G2 curves; then a *
+    a^-1 == 1 (0 for 0) against the big-int oracle on 4096 lanes of
+    BLS12-381 Fp and Fp2."""
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    from sppark_tpu_torch.ff.ext import get_fp2_ops
+    from sppark_tpu_torch.oracle.field import Fp2, Fr
+    from sppark_tpu_torch.params import get_curve, get_field
+
+    rng = np.random.default_rng(17)
+    cases = [(get_field_ops(get_curve(c).field), get_curve(c).field, 1, 0)
+             for c in EC_CURVES]
+    for c in INV_G2_CURVES:
+        F2 = get_fp2_ops(get_curve(c).fp2)
+        cases.append((F2.base, F2.base.params, 2, F2.nr))
+    for B, fp, deg, nr in cases:
+        what = f"{fp.name}" + (f"^2 (nr {nr})" if deg == 2 else "")
+        x = inv_inputs(B, INV_LANES[-1], rng, dev, deg)
+        want = FK.mont_batch_inv_plain(x, fp, deg, nr)
+        for n in INV_LANES:
+            xn = x[:, :n].contiguous()
+            up = FK.inv_up_plain(xn, fp, deg, nr)
+            for got, ref, arr in zip(FK.inv_up(xn, fp, deg, nr), up,
+                                     ("pre", "dn", "tp", "blk")):
+                if ref is not None:
+                    same("bigmont_inv_up", got, ref, f"{what}, {n} lanes, "
+                                                     f"{arr}")
+            blkinv = FK.mont_pow(up[3], fp.modulus - 2, fp)
+            same("bigmont_inv_down",
+                 FK.inv_down(xn, *up[:3], blkinv, fp, deg, nr),
+                 FK.inv_down_plain(xn, *up[:3], blkinv, fp, deg),
+                 f"{what}, {n} lanes")
+            same("bigmont_inv_down", FK.mont_batch_inv(xn, fp, deg, nr),
+                 want[:, :n], f"{what}, {n} lanes: up, pow, down == "
+                              f"mont_batch_inv_plain")
+    n = INV_ORACLE_LANES
+    fp = get_field("bls12_381_fp")
+    F = get_field_ops(fp)
+    x = inv_inputs(F, n, rng, dev, 1)
+    o = Fr(fp)
+    ok = all(o.mul(a, b) == (1 if a else 0) for a, b in zip(
+        F.to_int_list(x), F.to_int_list(FK.mont_batch_inv(x, fp))))
+    check(ok, f"bls12_381_fp: a * a^-1 == 1 (0 for 0) on {n} lanes, "
+              f"against the oracle")
+    F2 = get_fp2_ops(get_curve("bls12_381_g2").fp2)
+    x = inv_inputs(F2.base, n, rng, dev, 2)
+    o2 = Fp2(F2.params)
+    ok = all(o2.mul(a, b) == ((0, 0) if o2.is_zero(a) else (1, 0))
+             for a, b in zip(F2.to_int_list(x), F2.to_int_list(
+                 FK.mont_batch_inv(x, F2.base.params, 2, F2.nr))))
+    check(ok, f"bls12_381_g2 Fp2: a * a^-1 == 1 (0 for 0) on {n} lanes, "
+              f"against the oracle")
+
+
+def inv_counts(n, degree, nr):
+    """(up, down) work of the batch inversion over n non-zero lanes, as
+    (products, squarings, additions) of the base field: the walk's
+    products skip each chunk's first lane, the block's tree takes T - 1
+    products up and 3 (T - 1) down (rebuilt, then swept); degree 2 adds
+    the norm (2 squarings, the additions of nr) and the conjugate (2
+    products, 1 subtraction)."""
+    from sppark_tpu_torch.ff import kernels as FK
+    T, C = FK.INV_THREADS, FK.INV_CHUNK
+    nb = -(-n // (T * C))
+    active = sum(min(T, n - b * T * C) for b in range(nb))
+    up = [n - active + nb * (T - 1), 0, 0]
+    down = [2 * (n - active) + 3 * nb * (T - 1), 0, 0]
+    if degree == 2:
+        k = abs(nr)
+        up[1] += 2 * n
+        up[2] += n * (1 + (0 if k == 1 else bin(k).count("1")
+                           + k.bit_length() - 1))
+        down[0] += 2 * n
+        down[2] += n
+    return nb, up, down
+
+
+def inv_level1(curve, F, den, same, rate, card):
+    """The batch inversion at a tree's level 1 on the main path's
+    denominators: the three-launch pipeline (what tree.batch_inv_flat
+    runs on the card) and each of its kernels alone by CUDA events, the
+    plain versions on the first INV_SLICE lanes (held against the
+    kernels' arrays there), each kernel's bound, and both the pipeline and
+    the product tree it replaced (ff/inversion.py:batch_inv_tree through
+    bigmont_ew, padded to a power of two) by the wall clock.  Returns
+    ({kernel: (ms, plain ms, bound ms, bound by)}, numbers)."""
+    import torch
+    from sppark_tpu_torch.ff import inversion
+    from sppark_tpu_torch.ff import kernels as FK
+
+    degree = F.words // F.n32
+    B = F.base if degree == 2 else F
+    fp, nr = B.params, getattr(F, "nr", 0)
+    N, T = fp.n_ref_limbs, FK.INV_THREADS
+    flat = den.reshape(den.shape[0], -1).contiguous()
+    n = flat.shape[1]
+    up = FK.inv_up(flat, fp, degree, nr)
+    blkinv = FK.mont_pow(up[3], fp.modulus - 2, fp)
+    out = FK.inv_down(flat, *up[:3], blkinv, fp, degree, nr)
+    k, kb = INV_SLICE, INV_SLICE // (T * FK.INV_CHUNK)
+    xs = flat[:, :k]
+    up_s = FK.inv_up_plain(xs, fp, degree, nr)
+    for got, ref, arr in zip(up, up_s, ("pre", "dn", "tp", "blk")):
+        if ref is not None:
+            sl = {"tp": kb * T, "blk": kb}.get(arr, k)
+            same("bigmont_inv_up", got[:, :sl], ref,
+                 f"{curve} level 1 ({n} lanes), {arr} of the first {k}")
+    same("bigmont_inv_down", out[:, :k],
+         FK.inv_down_plain(xs, *up_s[:3], blkinv[:, :kb], fp, degree),
+         f"{curve} level 1 ({n} lanes), the first {k}")
+    nb, cu, cd = inv_counts(n, degree, nr)
+    ops = [c[0] * prod_ops(N) + c[1] * sqr_ops(N) + c[2] * 2 * N
+           for c in (cu, cd)]
+    w = 4 * N       # bytes of one base-field element
+    up_bytes = n * w * (degree + 1 + (degree == 2)) + nb * (T + 1) * w
+    down_bytes = n * w * (2 * degree + 1 + (degree == 2)) + nb * (T + 1) * w
+    timing = {}
+    for name, fn, pfn, nbytes, op in (
+            ("bigmont_inv_up", lambda: FK.inv_up(flat, fp, degree, nr),
+             lambda: FK.inv_up_plain(xs, fp, degree, nr), up_bytes, ops[0]),
+            ("bigmont_inv_down",
+             lambda: FK.inv_down(flat, *up[:3], blkinv, fp, degree, nr),
+             lambda: FK.inv_down_plain(xs, *up_s[:3], blkinv[:, :kb], fp,
+                                       degree), down_bytes, ops[1])):
+        ms, pms = kernel_ms(fn, reps=10), kernel_ms(pfn, reps=1)
+        b, by = bound(nbytes, op, rate)
+        timing[name] = (ms, pms, b, by)
+        print(f"time {name} (degree {degree}) at {curve} level 1, {n} "
+              f"lanes: {ms:.4f} ms (plain {pms:.4f} ms on {k} lanes, bound "
+              f"{b:.4f} ms by {by}, {b / ms:.3f} of bound)  [{card}]",
+              flush=True)
+    e = fp.modulus - 2
+    nsqr, nmul = pow_chain(e, POW_WINDOW)
+    pow_ms = kernel_ms(lambda: FK.mont_pow(up[3], e, fp), reps=10)
+    pipe_ms = kernel_ms(lambda: FK.mont_batch_inv(flat, fp, degree, nr),
+                        reps=10)
+    bound_ms = sum(timing[k][2] for k in timing) + bound(
+        2 * w * nb, nb * (nsqr * sqr_ops(N) + nmul * prod_ops(N)), rate)[0]
+    p2 = 1 << (n - 1).bit_length()
+    padded = torch.cat([den.reshape(den.shape[0], n),
+                        F.ones((p2 - n,), den.device)], 1)
+    if degree == 1:
+        old = lambda: inversion.batch_inv_tree(F.mul, F.inv, padded)  # noqa
+    else:
+        old = lambda: F._inv_by_norm(padded, lambda t: inversion.  # noqa
+                                     batch_inv_tree(B.mul, B.inv, t))
+    same("bigmont_inv_down", F.batch_inv(den).reshape(den.shape[0], n),
+         old()[:, :n], f"{curve} level 1: the pipeline == the product tree "
+                       f"it replaced")
+    walls = {"pipeline wall": wall_ms(lambda: F.batch_inv(den), 5),
+             "product tree wall (replaced)": wall_ms(old, 5)}
+    del padded
+    print(f"time batch inversion (degree {degree}) at {curve} level 1, "
+          f"{n} lanes, {nb} blocks: up + pow + down {pipe_ms:.4f} ms by "
+          f"events (bound {bound_ms:.4f} ms), bigmont_pow over the {nb} "
+          f"block products {pow_ms:.4f} ms; median of 5 synchronised: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in walls.items())
+          + f"  [{card}]", flush=True)
+    return timing, {"lanes": n, "blocks": nb, "pipeline_ms": pipe_ms,
+                    "pipeline_bound_ms": bound_ms, "pow_ms": pow_ms,
+                    **{k.replace(" ", "_"): v for k, v in walls.items()},
+                    **{f"{k}_ms": v[0] for k, v in timing.items()}}
 
 
 POW_WINDOW = 4      # the exponent digit of csrc/bigmont.cu's bigmont_pow
@@ -1545,12 +1750,14 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
 
     names = [EK.kernel_name(op, c) for c in (MSM_CURVE, G2_CURVE)
              for op in ("pair_prep", "pair_finish")]
-    errs = dict.fromkeys(names, 0)
+    errs = dict.fromkeys(names + ["bigmont_inv_up", "bigmont_inv_down"], 0)
     errs["bigmont_pow"] = pow_err
     seconds = {}
 
     def same(name, got, want, what):
         torch.cuda.synchronize()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
         e = word_err(got, want)
         errs[name] = max(errs[name], e)
         check(e == 0, f"{name} == plain: {what}")
@@ -1596,6 +1803,11 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
                      wk, f"{curve} {what}, {warp}")
     seconds["17 pair kernels vs plain"] = time.perf_counter() - t0
 
+    # -- 17b. the batch inversion kernels vs plain, both degrees -------------
+    t0 = time.perf_counter()
+    batch_inv_checks(dev, same)
+    seconds["17b batch inversion vs plain"] = time.perf_counter() - t0
+
     # -- 18. the tree MSM: G1 2^24, then G2 --------------------------------
     t0 = time.perf_counter()
     base, want = g1
@@ -1612,10 +1824,12 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
     for curve, lg, counts in ((MSM_CURVE, MSM_LG, launches),
                               (G2_CURVE, TREE_G2_LG, launches2)):
         levels = counts[EK.kernel_name("pair_prep", curve)]
-        check(counts["bigmont_pow"] == levels + 1,
-              f"tree {curve} 2^{lg}: bigmont_pow launched once per level "
-              f"({levels}) and once for to_affine; bigmont_ew "
-              f"{counts['bigmont_ew']} times")
+        check(counts["bigmont_pow"] == counts["bigmont_inv_up"]
+              == counts["bigmont_inv_down"] == levels + 1,
+              f"tree {curve} 2^{lg}: bigmont_inv_up, bigmont_pow and "
+              f"bigmont_inv_down launched once per level ({levels}) and "
+              f"once for to_affine; bigmont_ew {counts['bigmont_ew']} "
+              f"times")
 
     # -- 19. times ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1632,13 +1846,32 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
                         f"{key}_profiled_wall_ms": t_prof,
                         f"{key}_phases_device_host_ms": phases,
                         f"{key}_kernels_ms_launches": by_kernel})
+        per = {k: by_kernel.get(k, (0.0, 0)) for k in (
+            "bigmont_ew", "bigmont_inv_up", "bigmont_pow",
+            "bigmont_inv_down")}
+        per["elementwise"] = tuple(map(sum, zip((0.0, 0), *(
+            v for k, v in by_kernel.items() if "elementwise" in k))))
+        lv_dev, lv_host = phases["msm.tree_levels"]
+        print(f"per tree invoke, {curve} 2^{lg} (launches, device ms): "
+              + ", ".join(f"{k} {c_} ({d:.4f} ms)" for k, (d, c_) in
+                          per.items())
+              + f"; msm.tree_levels {lv_dev:.4f} device / {lv_host:.4f} "
+              f"host ms; idle share {1 - busy / t_prof:.4f} under the "
+              f"profiler  [{card}]", flush=True)
+        numbers[f"{key}_per_invoke_ms_launches"] = per
         cp = get_curve(curve)
         N = cp.field.n_ref_limbs
         ops = (fp2_ops(N, cp.fp2.nr_small) if cp.fp2 else
                (prod_ops(N), sqr_ops(N), 2 * N))
-        cases = pair_level1(curve, c, w, *ops)
+        den, cases = pair_level1(curve, c, w, *ops)
         timing.update(time_kernels(cases, same, rate, card))
         del cases
+        inv_t, inv_nums = inv_level1(curve, c.stages.ops.F, den, same, rate,
+                                     card)
+        numbers[f"{key}_batch_inv_level1"] = inv_nums
+        if key == "tree_g1":
+            timing.update(inv_t)
+        del den
         torch.cuda.empty_cache()
     del ctx, ctx2
     # bigmont_pow at the shape of every inversion of the MSM paths: one
@@ -1736,6 +1969,18 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
         "launches": launches["bigmont_pow"] + launches2["bigmont_pow"],
         "max_abs_err": errs["bigmont_pow"], "ms": ms, "plain_ms": pms,
         "bound_ms": b, "bound_by": by, "library_ms": None})
+    # timed at the G1 tree's level 1 (degree 1); degree 2 is printed
+    for name in ("bigmont_inv_up", "bigmont_inv_down"):
+        ms, pms, b, by = timing[name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "sppark_tpu_torch/csrc/batch_inv.cu",
+            "replaces": "sppark_tpu/ff/bigmont.py:383 (its products in "
+                        "sppark_tpu/ff/base.py:201 batch_inv and :232 "
+                        "batch_inv_tree, sppark_tpu/ff/ext.py:95-107)",
+            "launches": launches[name] + launches2[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+            "bound_ms": b, "bound_by": by, "library_ms": None})
     return entries, numbers, {**launches, **launches2}
 
 
@@ -2202,7 +2447,7 @@ def main():
         entry = ""
         for line in rec["log"].splitlines():
             m = re.search(r"Compiling entry function '\w*?"
-                          r"((?:ew|pow|rows|cols|mid)_kernel)"
+                          r"((?:ew|pow|rows|cols|mid)_kernel|inv_up|inv_down)"
                           r"(I(?:L[ib]\d+E)+E)?", line)
             if m:
                 args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
@@ -2434,7 +2679,8 @@ def main():
              tree_numbers["tree_g1_launches"],
              tree_numbers["tree_g2_launches"])
     for e in msm_entries + g2_entries + tree_entries:
-        if e["name"] in ("bigmont_ew", "bigmont_pow"):
+        if e["name"] in ("bigmont_ew", "bigmont_pow", "bigmont_inv_up",
+                         "bigmont_inv_down"):
             e["launches"] = sum(run[e["name"]] for run in paths)
         elif e in msm_entries + g2_entries and e["name"] in tree_launches:
             e["launches"] += tree_launches[e["name"]]

@@ -10,12 +10,12 @@ package's `(L, *batch)` 16-bit-limb planes packed in pairs
 the JAX package's (c0 planes, c1 planes) pair <-> the port's (2 n32, ...)
 words, c0's then c1's, as ff/ext.py:Fp2Field holds them).
 
-`mul`, `sqr` and `pow_const` (so every inversion) go through the field
-kernels a field is made with (ff/kernels.py: the bigmont_ew and
-bigmont_pow kernels on CUDA tensors by default, or the plain versions);
-`add`, `sub`, `neg`, `select` and the rest are plain PyTorch, as the JAX
-package left them to XLA.  Inputs are canonical (< p) and so is every
-output.
+`mul`, `sqr`, `pow_const` (so every inversion) and, on the card, the
+batch inversions go through the field kernels a field is made with
+(ff/kernels.py: the bigmont_ew, bigmont_pow and bigmont_inv_up/_down
+kernels on CUDA tensors by default, or the plain versions); `add`, `sub`,
+`neg`, `select` and the rest are plain PyTorch, as the JAX package left
+them to XLA.  Inputs are canonical (< p) and so is every output.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ import torch
 
 from ..params import FieldParams, get_field
 from . import inversion
-from .kernels import (KERNELS, FieldKernels, carry_words, int_words,
-                      reduce_once, sub_words, words32, words64)
+from .kernels import (KERNELS, FieldKernels, int_words, mod_add, mod_sub,
+                      sub_words, words32, words64)
 
 
 def from_jax_planes(planes, device=None) -> torch.Tensor:
@@ -84,15 +84,10 @@ class BigMontField:
 
     # -- ring ops ----------------------------------------------------------------
     def add(self, x, y):
-        x, y = torch.broadcast_tensors(words64(x), words64(y))
-        rows, carry = carry_words(list(x + y))
-        return reduce_once(rows, carry, self.params)
+        return mod_add(x, y, self.params)
 
     def sub(self, x, y):
-        x, y = torch.broadcast_tensors(words64(x), words64(y))
-        d, br = sub_words(list(x), list(y))
-        rows, _ = carry_words([r + w * br for r, w in zip(d, self._p_words)])
-        return words32(torch.stack(rows))
+        return mod_sub(x, y, self.params)
 
     def neg(self, x):
         d, _ = sub_words([torch.full_like(w, p) for w, p in
@@ -150,16 +145,24 @@ class BigMontField:
         return self.pow_const(x, self.p - 2)
 
     def batch_inv(self, x):
-        """Montgomery-trick inversion along the last axis: prefix and suffix
-        products and ONE Fermat inversion; zero lanes give zero
-        (ff/inversion.py)."""
+        """Montgomery-trick inversion of every lane, zero lanes giving
+        zero.  On the card the field kernels' batch_inv over the whole
+        batch (ff/kernels.py:mont_batch_inv: three launches); on the CPU
+        prefix and suffix products along the last axis and ONE Fermat
+        inversion (ff/inversion.py)."""
+        if x.device.type != "cpu":
+            return self.kern.batch_inv(x, self.params)
         return inversion.batch_inv(self.mul, self.inv, x, self.is_zero(x),
                                    self.ones(x.shape[1:], x.device))
 
     def batch_inv_tree(self, x):
-        """Inversion along the last axis by a product tree (the port of
-        sppark_tpu/ff/base.py:batch_inv_tree, ff/inversion.py): a
-        power-of-two axis and non-zero inputs."""
+        """Inversion along the last axis with the contract of
+        sppark_tpu/ff/base.py:batch_inv_tree (a power-of-two axis, non-zero
+        inputs): on the card batch_inv's kernels, on the CPU a product tree
+        (ff/inversion.py)."""
+        if x.device.type != "cpu":
+            inversion.check_pow2(x.shape[-1])
+            return self.kern.batch_inv(x, self.params)
         return inversion.batch_inv_tree(self.mul, self.inv, x)
 
     # -- Montgomery domain ---------------------------------------------------------

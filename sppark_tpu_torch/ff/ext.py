@@ -27,8 +27,9 @@ from typing import Iterable, List
 import torch
 
 from ..params import Fp2Params
+from . import inversion
 from .bigmont import get_field_ops, wire_to_words, words_to_wire
-from .kernels import KERNELS, FieldKernels
+from .kernels import KERNELS, FieldKernels, add_small_multiple
 from .mont32 import Mont32Field, get_mont32_ops
 
 
@@ -68,23 +69,9 @@ class Fp2Field:
     def neg(self, x):
         return self._unpair(self.base.neg(self._pair(x)))
 
-    def _nr_times(self, t):
-        """|nr| * t by doubling and adding."""
-        B, k = self.base, abs(self.nr)
-        acc, run = None, t
-        while k:
-            if k & 1:
-                acc = run if acc is None else B.add(acc, run)
-            k >>= 1
-            if k:
-                run = B.add(run, run)
-        return acc
-
     def _plus_nr(self, t0, t1, sign: int = 1):
-        """t0 + sign * nr * t1 over base-field words."""
-        m = self._nr_times(t1)
-        return self.base.add(t0, m) if sign * self.nr > 0 else \
-            self.base.sub(t0, m)
+        """t0 + sign * nr * t1 over base-field words, by additions."""
+        return add_small_multiple(t0, t1, sign * self.nr, self.base.params)
 
     def mul(self, x, y):
         """Karatsuba: c0 = a0 b0 + nr a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0
@@ -144,15 +131,28 @@ class Fp2Field:
         r = B.mul(a, ninv[:, None])
         return torch.cat([r[:, 0], B.neg(r[:, 1])])
 
+    def _batch_inv_dev(self, x):
+        """On the card: ONE degree-2 call of the field kernels' batch_inv
+        (the norm, its inversion and the conjugate multiply in three
+        launches, ff/kernels.py:mont_batch_inv)."""
+        return self.base.kern.batch_inv(x, self.base.params, 2, self.nr)
+
     def batch_inv(self, x):
-        """Inversion along the last axis through the norm map and the base
-        field's prefix/suffix batch inversion; zero lanes give zero."""
+        """Inversion of every lane through the norm map, zero lanes giving
+        zero: on the card `_batch_inv_dev`, on the CPU the base field's
+        prefix/suffix batch inversion along the last axis."""
+        if x.device.type != "cpu":
+            return self._batch_inv_dev(x)
         return self._inv_by_norm(x, self.base.batch_inv)
 
     def batch_inv_tree(self, x):
-        """Inversion along the last axis through the norm map and the base
-        field's product tree (the port of sppark_tpu/ff/ext.py:
-        Fp2Field.batch_inv_tree): a power-of-two axis, non-zero inputs."""
+        """Inversion along the last axis with the contract of
+        sppark_tpu/ff/ext.py:Fp2Field.batch_inv_tree (a power-of-two axis,
+        non-zero inputs): on the card `_batch_inv_dev`, on the CPU through
+        the norm map and the base field's product tree."""
+        if x.device.type != "cpu":
+            inversion.check_pow2(x.shape[-1])
+            return self._batch_inv_dev(x)
         return self._inv_by_norm(x, self.base.batch_inv_tree)
 
     # -- host conversion -----------------------------------------------------------

@@ -39,14 +39,17 @@ def batch_inv(mul, inv, x, zero, ones):
     return torch.where(zero, torch.zeros_like(x), out)
 
 
+def check_pow2(n: int) -> None:
+    if n & (n - 1):
+        raise ValueError(f"batch_inv_tree needs a power-of-two axis, "
+                         f"not {n}")
+
+
 def batch_inv_tree(mul, inv, x):
     """Pair products up to the root, ONE inversion, then each node's
     inverse times its sibling down to the leaves (~3 products per
     element).  Needs a power-of-two axis and non-zero inputs."""
-    n = x.shape[-1]
-    if n & (n - 1):
-        raise ValueError(f"batch_inv_tree needs a power-of-two axis, "
-                         f"not {n}")
+    check_pow2(x.shape[-1])
     levels = [x]
     while levels[-1].shape[-1] > 1:
         cur = levels[-1]

@@ -4,10 +4,13 @@ version.
 `mont_mul` and `mont_sqr` run csrc/bigmont.cu:bigmont_ew (the port of
 sppark_tpu/ff/bigmont.py:_ew_call_cached); `mont_pow` runs the same file's
 bigmont_pow, a whole fixed-exponent chain of those products in one launch
-(the field's Fermat inversion).  On a CUDA tensor a wrapper launches its
-kernel on the current stream or raises; on a CPU tensor it computes the
-same function with the plain version.  Each launch adds one to
-`launches[kernel]`.
+(the field's Fermat inversion); `mont_batch_inv` inverts every lane of a
+batch (degree 1, or fp2 through the norm) in three launches:
+csrc/batch_inv.cu's bigmont_inv_up, bigmont_pow over one product per
+block, bigmont_inv_down (Montgomery's trick in chunks).  On a CUDA tensor
+a wrapper launches its kernels on the current stream or raises; on a CPU
+tensor it computes the same function with the plain version.  Each
+launch adds one to `launches[kernel]`.
 
 An element is n32 32-bit words, limb-major `(n32, *batch)`, held as the u32
 bit pattern in an int32 tensor; R = 2^(32 n32), so the Montgomery words
@@ -30,11 +33,13 @@ import torch
 from .. import _build
 from ..params import FieldParams
 from ..util.errors import SpparkError
+from . import inversion
 
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
 
-launches = {"bigmont_ew": 0, "bigmont_pow": 0}
+launches = {"bigmont_ew": 0, "bigmont_pow": 0, "bigmont_inv_up": 0,
+            "bigmont_inv_down": 0}
 
 
 def reset_launches() -> None:
@@ -87,6 +92,35 @@ def reduce_once(rows, top, params: FieldParams) -> torch.Tensor:
     d, br = sub_words(rows, int_words(params.modulus, len(rows)))
     use_d = ((br == 0) | (top != 0))
     return words32(torch.where(use_d, torch.stack(d), torch.stack(rows)))
+
+
+def mod_add(x, y, params: FieldParams) -> torch.Tensor:
+    """x + y mod p over canonical (n32, *batch) words."""
+    x, y = torch.broadcast_tensors(words64(x), words64(y))
+    rows, carry = carry_words(list(x + y))
+    return reduce_once(rows, carry, params)
+
+
+def mod_sub(x, y, params: FieldParams) -> torch.Tensor:
+    """x - y mod p over canonical (n32, *batch) words."""
+    x, y = torch.broadcast_tensors(words64(x), words64(y))
+    d, br = sub_words(list(x), list(y))
+    rows, _ = carry_words([r + w * br for r, w in
+                           zip(d, int_words(params.modulus, len(d)))])
+    return words32(torch.stack(rows))
+
+
+def add_small_multiple(t0, t1, k: int, params: FieldParams) -> torch.Tensor:
+    """t0 + k t1 mod p for a small signed k != 0, |k| t1 by doubling and
+    adding (the fp2 nonresidue's products, mont.cuh:times)."""
+    acc, run, m = None, t1, abs(k)
+    while m:
+        if m & 1:
+            acc = run if acc is None else mod_add(acc, run, params)
+        m >>= 1
+        if m:
+            run = mod_add(run, run, params)
+    return mod_add(t0, acc, params) if k > 0 else mod_sub(t0, acc, params)
 
 
 # -- plain versions --------------------------------------------------------------
@@ -159,17 +193,123 @@ def mont_pow_plain(x: torch.Tensor, e: int,
     return acc
 
 
+# -- batch inversion: Montgomery's trick in chunks --------------------------
+
+#: csrc/batch_inv.cu's threads a block (T) and lanes a thread (C): thread t
+#: of block b owns lanes b T C + j T + t, j < C
+INV_THREADS, INV_CHUNK = 256, 16
+
+
+def _inv_factor(x, params: FieldParams, degree: int, nr: int):
+    """The lane factors (n32, n) of flat (degree n32, n) words: the lanes
+    themselves, or in degree 2 their norms a0^2 - nr a1^2."""
+    if degree == 1:
+        return x
+    N = params.n_ref_limbs
+    return add_small_multiple(mont_sqr_plain(x[:N], params),
+                              mont_sqr_plain(x[N:], params), -nr, params)
+
+
+def _blocked(w, nb: int, T: int, C: int, params: FieldParams):
+    """(n32, n) words padded with ones to nb C T lanes -> (n32, nb, C, T):
+    lane b C T + j T + t at [:, b, j, t]."""
+    pad = _one_words(params, w.new_empty((w.shape[0], nb * C * T
+                                          - w.shape[1])))
+    return torch.cat([w, pad], 1).reshape(w.shape[0], nb, C, T)
+
+
+def _safe(d, params: FieldParams):
+    """(d with zero lanes replaced by one, the zero lanes)."""
+    zero = (d == 0).all(0)
+    return torch.where(zero, _one_words(params, d), d), zero
+
+
+def inv_up_plain(x, params: FieldParams, degree: int = 1, nr: int = 0,
+                 threads: int = INV_THREADS, chunk: int = INV_CHUNK):
+    """Plain version of bigmont_inv_up on flat (degree n32, n) words, on
+    the kernel's schedule.  Returns (pre (n32, n): each lane's inclusive
+    prefix product within its thread's chunk; dn (n32, n): the norms in
+    degree 2, else None; tp (n32, nb T): the thread products; blk (n32,
+    nb): the block products); a zero factor counts as one."""
+    T, C = threads, chunk
+    N, n = params.n_ref_limbs, x.shape[1]
+    nb = -(-n // (T * C))
+    d = _inv_factor(x, params, degree, nr)
+    f = _blocked(_safe(d, params)[0], nb, T, C, params)
+    pre = [f[:, :, 0]]
+    for j in range(1, C):
+        pre.append(mont_mul_plain(pre[-1], f[:, :, j], params))
+    blk = pre[-1]
+    while blk.shape[-1] > 1:        # the block's tree, adjacent pairs
+        blk = mont_mul_plain(blk[..., 0::2], blk[..., 1::2], params)
+    return (torch.stack(pre, 2).reshape(N, -1)[:, :n],
+            d if degree == 2 else None, pre[-1].reshape(N, nb * T),
+            blk[..., 0])
+
+
+def inv_down_plain(x, pre, dn, tp, blkinv, params: FieldParams,
+                   degree: int = 1, threads: int = INV_THREADS,
+                   chunk: int = INV_CHUNK):
+    """Plain version of bigmont_inv_down: inv_up_plain's arrays and blkinv
+    (n32, nb), the block products' inverses -> the inverses of x's lanes
+    (zero for a zero lane), (degree n32, n)."""
+    T, C = threads, chunk
+    N, n = params.n_ref_limbs, x.shape[1]
+    nb = blkinv.shape[1]
+    d, zero = _safe(x if degree == 1 else dn, params)
+    f = _blocked(d, nb, T, C, params)
+    pre = _blocked(pre, nb, T, C, params)
+    # down each block's tree of thread products from the root's inverse,
+    # which is given: u = 1 / (each thread's chunk product)
+    u = inversion.batch_inv_tree(
+        lambda a, b: mont_mul_plain(a, b, params),
+        lambda root: blkinv[..., None], tp.reshape(N, nb, T))
+    inv = [u] * C
+    for j in range(C - 1, 0, -1):
+        inv[j] = mont_mul_plain(u, pre[:, :, j - 1], params)
+        u = mont_mul_plain(u, f[:, :, j], params)
+    inv[0] = u
+    inv = torch.stack(inv, 2).reshape(N, -1)[:, :n]
+    if degree == 1:
+        return torch.where(zero, torch.zeros_like(inv), inv)
+    return torch.cat([mont_mul_plain(x[:N], inv, params),
+                      mod_sub(torch.zeros_like(inv),
+                              mont_mul_plain(x[N:], inv, params), params)])
+
+
+def mont_batch_inv_plain(x, params: FieldParams, degree: int = 1,
+                         nr: int = 0, threads: int = INV_THREADS,
+                         chunk: int = INV_CHUNK) -> torch.Tensor:
+    """Plain version of mont_batch_inv on the kernels' schedule (chunks of
+    `chunk` lanes strided by `threads`, one mont_pow_plain over the block
+    products), on any device."""
+    flat = x.reshape(x.shape[0], -1)
+    if flat.shape[1] == 0:
+        return x.clone()
+    pre, dn, tp, blk = inv_up_plain(flat, params, degree, nr, threads, chunk)
+    blkinv = mont_pow_plain(blk, params.modulus - 2, params)
+    return inv_down_plain(flat, pre, dn, tp, blkinv, params, degree,
+                          threads, chunk).reshape(x.shape)
+
+
 # -- kernel --------------------------------------------------------------------
 
 _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {"bigmont_ew": [_I, _I, _VP, _VP, _VP, _LL, _VP, _VP],
                "bigmont_pow": [_I, _VP, _VP, _LL, _VP, _I, _VP, _VP]}
+_INV_SIGNATURES = {
+    "bigmont_inv_up": [_I] * 4 + [_VP] * 5 + [_LL, _VP, _VP],
+    "bigmont_inv_down": [_I] * 4 + [_VP] * 6 + [_LL, _VP, _VP]}
 #: the largest exponent bigmont_pow takes: 12 words (p - 2 of every field)
 EXP_WORDS = 12
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("bigmont", _SIGNATURES)
+
+
+def _inv_lib() -> ctypes.CDLL:
+    return _build.load("batch_inv", _INV_SIGNATURES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,6 +394,80 @@ def _pow(x: torch.Tensor, e: int, params: FieldParams) -> torch.Tensor:
     return out
 
 
+def _check_degree(degree: int, nr: int) -> None:
+    if degree not in (1, 2) or (degree == 2) != (nr != 0):
+        raise ValueError(f"batch inversion: degree {degree} with "
+                         f"nonresidue {nr}")
+
+
+def _inv_call(name: str, params: FieldParams, degree: int, nr: int,
+              n: int, *ptrs) -> None:
+    with torch.cuda.device(ptrs[0].device):
+        rc = getattr(_inv_lib(), name)(
+            params.n_ref_limbs, degree, INV_THREADS, INV_CHUNK,
+            *(None if t is None else t.data_ptr() for t in ptrs), n,
+            field_consts(params, nr=nr).ctypes.data,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise SpparkError(rc, f"{name}: CUDA error {rc}")
+    launches[name] += 1
+
+
+def inv_up(x: torch.Tensor, params: FieldParams, degree: int = 1,
+           nr: int = 0):
+    """bigmont_inv_up on flat (degree n32, n) words, n > 0, on the card:
+    the arrays of inv_up_plain, in the kernel's scratch."""
+    _check_degree(degree, nr)
+    check_words("bigmont_inv_up", params, x, degree=degree)
+    x = x.contiguous()
+    N, n = params.n_ref_limbs, x.shape[1]
+    nb = -(-n // (INV_THREADS * INV_CHUNK))
+
+    def new(lanes):
+        return torch.empty((N, lanes), dtype=torch.int32, device=x.device)
+
+    pre, tp, blk = new(n), new(nb * INV_THREADS), new(nb)
+    dn = new(n) if degree == 2 else None
+    _inv_call("bigmont_inv_up", params, degree, nr, n, x, pre, dn, tp, blk)
+    return pre, dn, tp, blk
+
+
+def inv_down(x: torch.Tensor, pre, dn, tp, blkinv, params: FieldParams,
+             degree: int = 1, nr: int = 0) -> torch.Tensor:
+    """bigmont_inv_down on the card: x, inv_up's arrays and the block
+    products' inverses -> the inverses of x's lanes, (degree n32, n)."""
+    _check_degree(degree, nr)
+    check_words("bigmont_inv_down", params, x, degree=degree)
+    check_words("bigmont_inv_down", params, pre, tp, blkinv,
+                *([dn] if degree == 2 else []))
+    x, pre, tp, blkinv = (t.contiguous() for t in (x, pre, tp, blkinv))
+    dn = None if dn is None else dn.contiguous()
+    out = torch.empty_like(x)
+    _inv_call("bigmont_inv_down", params, degree, nr, x.shape[1], x, pre,
+              dn, tp, blkinv, out)
+    return out
+
+
+def mont_batch_inv(x: torch.Tensor, params: FieldParams, degree: int = 1,
+                   nr: int = 0) -> torch.Tensor:
+    """1 / x lane by lane over (degree n32, *batch) words, a zero lane
+    giving zero: degree 1 in the field, degree 2 in its quadratic
+    extension u^2 = nr through the norm.  On the card THREE launches for
+    any batch: bigmont_inv_up, bigmont_pow over the block products,
+    bigmont_inv_down."""
+    _check_degree(degree, nr)
+    if x.device.type == "cpu":
+        return mont_batch_inv_plain(x, params, degree, nr)
+    check_words("bigmont_inv_up", params, x, degree=degree)
+    flat = x.reshape(x.shape[0], -1)
+    if flat.shape[1] == 0:
+        return torch.empty_like(x)
+    pre, dn, tp, blk = inv_up(flat, params, degree, nr)
+    blkinv = _pow(blk, params.modulus - 2, params)
+    return inv_down(flat, pre, dn, tp, blkinv, params, degree,
+                    nr).reshape(x.shape)
+
+
 def mont_mul(x: torch.Tensor, y: torch.Tensor,
              params: FieldParams) -> torch.Tensor:
     """x * y * R^-1 mod p lane by lane, batch shapes broadcast."""
@@ -278,14 +492,16 @@ def mont_pow(x: torch.Tensor, e: int, params: FieldParams) -> torch.Tensor:
 
 
 class FieldKernels(NamedTuple):
-    """The three field functions a BigMontField calls."""
+    """The four field functions a BigMontField calls."""
 
     mul: Callable
     sqr: Callable
     pow: Callable
+    batch_inv: Callable
 
 
 #: what the entry points use: the kernels on CUDA tensors
-KERNELS = FieldKernels(mont_mul, mont_sqr, mont_pow)
+KERNELS = FieldKernels(mont_mul, mont_sqr, mont_pow, mont_batch_inv)
 #: the plain versions on any device, to hold the kernels against
-PLAIN = FieldKernels(mont_mul_plain, mont_sqr_plain, mont_pow_plain)
+PLAIN = FieldKernels(mont_mul_plain, mont_sqr_plain, mont_pow_plain,
+                     mont_batch_inv_plain)

@@ -10,9 +10,10 @@ sppark_tpu/msm/tree.py (mode="tree").
     (slab.point_rows), which applies each digit's sign and blanks the
     padding: the slab's gather, with the tree's slot maps.
   * Each of lmax levels adds the even slots to the odd ones by the
-    batch-affine pair add: the prep kernel, one product-tree batch
-    inversion across every lane of the level, the finish kernel.  Its
-    operands are views of the level below, read in place.
+    batch-affine pair add: the prep kernel, one batch inversion across
+    every lane of the level (on the card the three launches of
+    ff/kernels.py:mont_batch_inv), the finish kernel.  Its operands are
+    views of the level below, read in place.
   * A run of c slots finishes at level lg(c); its bucket's sum is taken
     from that level as it is made (the JAX package concatenates every
     level and gathers once at the end: the same words).
@@ -34,9 +35,12 @@ from .slab import IDX_MASK, spread
 
 
 def batch_inv_flat(F, den):
-    """1 / den over (W, *batch) words, all lanes in one product-tree
-    inversion: flattened, padded with ones to a power of two (neutral in
-    the tree).  Every lane must be non-zero."""
+    """1 / den over (W, *batch) words, all lanes in one inversion.  On the
+    card the field's any-length batch inversion; on the CPU a product tree
+    over the lanes flattened and padded with ones to a power of two
+    (neutral in the tree).  Every lane must be non-zero."""
+    if den.device.type != "cpu":
+        return F.batch_inv(den)
     n = den[0].numel()
     flat = den.reshape(den.shape[0], n)
     p2 = 1 << max(0, n - 1).bit_length()

@@ -330,6 +330,128 @@ def test_pow_kernel_vs_plain(dev, field):
             assert FK.launches["bigmont_pow"] == before + 1
 
 
+INV_LANES = [1, 31, 256 * 16 - 1, 256 * 16 + 1, (1 << 20) + 3]
+
+
+def _inv_inputs(F, seed, dev, degree=1):
+    """Prefixes of one (degree n32, 2^20 + 3) input of canonical words, one
+    for each of INV_LANES, with zero lanes planted at 0, 30, 4094, 4096
+    and 1 << 20 and, in degree 2, a (0, c1) lane at 3 and a (c0, 0) lane
+    at 5."""
+    n = INV_LANES[-1]
+    x = torch.cat([_canon_words(F, n, seed + k, dev) for k in range(degree)])
+    x[:, [0, 30, 4094, 4096, 1 << 20]] = 0
+    if degree == 2:
+        x[:F.n32, 3] = 0
+        x[F.n32:, 5] = 0
+    return [x[:, :k].contiguous() for k in INV_LANES]
+
+
+@pytest.mark.parametrize("field", ["test_bm64_fp", "bn254_fp",
+                                   "bls12_381_fp"])     # n32 = 2, 8, 12
+def test_batch_inv_kernels_vs_plain(dev, field):
+    """bigmont_inv_up -> bigmont_pow -> bigmont_inv_down against the plain
+    pipeline at 1, 31, T C - 1, T C + 1 and 2^20 + 3 lanes with zero lanes
+    planted: the up kernel's arrays and the inverses word for word, three
+    launches a call."""
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+
+    assert FK.INV_THREADS * FK.INV_CHUNK == 256 * 16
+    fp = params.get_field(field)
+    for x in _inv_inputs(get_field_ops(fp), 1, dev):
+        n = x.shape[1]
+        for got, want in zip(FK.inv_up(x, fp), FK.inv_up_plain(x, fp)):
+            torch.cuda.synchronize()
+            assert (got is None and want is None) or torch.equal(got, want)
+        before = dict(FK.launches)
+        got = FK.mont_batch_inv(x, fp)
+        torch.cuda.synchronize()
+        assert {k: FK.launches[k] - before[k] for k in before} == {
+            "bigmont_ew": 0, "bigmont_pow": 1, "bigmont_inv_up": 1,
+            "bigmont_inv_down": 1}
+        assert torch.equal(got, FK.mont_batch_inv_plain(x, fp)), n
+
+
+@pytest.mark.parametrize("curve", ["bls12_381_g2", "bn254_g2",
+                                   "bls12_377_g2"])     # nr -1, -1, -5
+def test_fp2_batch_inv_kernels_vs_plain(dev, curve):
+    """Degree 2 (the norm in the up kernel, the conjugate multiply in the
+    down kernel) against the plain pipeline, with zero, (0, c1) and (c0,
+    0) lanes; a * a^-1 is one on every non-zero lane."""
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.ext import get_fp2_ops
+
+    F = get_fp2_ops(params.get_curve(curve).fp2)
+    fp, nr = F.base.params, F.nr
+    for x in _inv_inputs(F.base, 7, dev, degree=2):
+        n = x.shape[1]
+        for got, want in zip(FK.inv_up(x, fp, 2, nr),
+                             FK.inv_up_plain(x, fp, 2, nr)):
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), n
+        got = FK.mont_batch_inv(x, fp, 2, nr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, FK.mont_batch_inv_plain(x, fp, 2, nr)), n
+        one = F.ones((n,), dev)
+        assert torch.equal(F.mul(x, got),
+                           torch.where(F.is_zero(x), torch.zeros_like(one),
+                                       one))
+
+
+def test_batch_inv_kernels_strided_and_batched(dev):
+    """A strided view and leading batch axes go in as the same lanes."""
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+
+    fp = params.get_field("bls12_381_fp")
+    x = _inv_inputs(get_field_ops(fp), 1, dev)[-1][:, :6000]
+    view = x[:, 1::2]
+    assert not view.is_contiguous()
+    want = FK.mont_batch_inv_plain(view.contiguous(), fp)
+    assert torch.equal(FK.mont_batch_inv(view, fp), want)
+    batched = x[:, :6000].reshape(12, 3, 40, 50)
+    assert torch.equal(FK.mont_batch_inv(batched, fp),
+                       FK.mont_batch_inv_plain(x, fp).reshape(12, 3, 40, 50))
+
+
+def test_batch_inv_routes(dev, monkeypatch):
+    """On a CUDA tensor every batch inversion of the fields (batch_inv and
+    batch_inv_tree, degree 1 and 2, and the tree level's batch_inv_flat)
+    launches up, pow and down once and never calls a plain version; on a
+    CPU tensor none launches."""
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    from sppark_tpu_torch.ff.ext import get_fp2_ops
+    from sppark_tpu_torch.msm.tree import batch_inv_flat
+
+    plain = []
+    for name in ("mont_batch_inv_plain", "inv_up_plain", "inv_down_plain",
+                 "mont_pow_plain", "mont_mul_plain"):
+        monkeypatch.setattr(FK, name, lambda *a, _n=name, **k:
+                            plain.append(_n))
+    F = get_field_ops("bls12_381_fp")
+    F2 = get_fp2_ops(params.get_curve("bls12_381_g2").fp2)
+    x1 = _canon_words(F, 64, 4, dev)
+    x2 = torch.cat([x1, x1.flip(1)])
+    for f, x in ((F.batch_inv, x1), (F.batch_inv_tree, x1[:, 1:33]),
+                 (F2.batch_inv, x2), (F2.batch_inv_tree, x2[:, 1:33]),
+                 (lambda d: batch_inv_flat(F, d), x1[:, 1:]),
+                 (lambda d: batch_inv_flat(F2, d), x2[:, 1:])):
+        before = dict(FK.launches)
+        f(x)
+        torch.cuda.synchronize()
+        assert {k: FK.launches[k] - before[k] for k in before} == {
+            "bigmont_ew": 0, "bigmont_pow": 1, "bigmont_inv_up": 1,
+            "bigmont_inv_down": 1}
+    assert plain == []
+    monkeypatch.undo()
+    before = dict(FK.launches)
+    F.batch_inv(x1[:, :8].cpu())
+    F2.batch_inv_tree(x2[:, :4].cpu())
+    assert FK.launches == before
+
+
 @pytest.mark.parametrize("curve", MSM_CURVES)
 def test_point_kernels_vs_plain(dev, curve):
     from sppark_tpu_torch.ec import kernels as EK
@@ -593,8 +715,8 @@ def test_tree_msm_on_card(dev, curve, n):
     """mode="tree" through the entry point equals the slab MSM and
     msm_naive on the same input (all-equal scalars too); the pair kernels,
     the integrate's add and dbl and the Montgomery multiply launched, and
-    bigmont_pow once per level (one prep launch each) and once for
-    to_affine."""
+    the batch inversion's three kernels once per level (one prep launch
+    each) and once for to_affine."""
     import random
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
@@ -619,11 +741,13 @@ def test_tree_msm_on_card(dev, curve, n):
     counts = {k: v for k, v in {**EK.launches, **EK.fp2_launches}.items()
               if v}
     pows = FK.launches["bigmont_pow"]
+    invs = (FK.launches["bigmont_inv_up"], FK.launches["bigmont_inv_down"])
     assert got == MSMContext(curve, n).invoke(sc, points=pts)
     assert got == msm_naive(cp, pts, sc)
     assert sorted(counts) == sorted(EK.kernel_name(op, curve)
                                     for op in EK.TREE_OPS)
     assert FK.launches["bigmont_ew"] > 0
     assert pows == counts[EK.kernel_name("pair_prep", curve)] + 1
+    assert invs == (pows, pows)
     k = rng.randrange(r)
     assert tree.invoke([k] * n) == msm_naive(cp, pts, [k] * n)

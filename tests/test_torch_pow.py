@@ -72,8 +72,8 @@ def test_inversions_after_rewiring(field):
         calls.append(e)
         return FK.mont_pow_plain(x, e, fp)
 
-    F = get_field_ops(field, FK.FieldKernels(FK.mont_mul_plain,
-                                             FK.mont_sqr_plain, pow_))
+    F = get_field_ops(field, FK.FieldKernels(
+        FK.mont_mul_plain, FK.mont_sqr_plain, pow_, FK.mont_batch_inv_plain))
     p = F.p
     vals = _values(p, 8, 4)
     want = [pow(v, -1, p) if v else 0 for v in vals]
