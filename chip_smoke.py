@@ -19,10 +19,13 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      with CUDA events, beside the plain versions and the kernels' bounds;
   6. holds the Montgomery multiply, the fixed-exponent power bigmont_pow
      (e = 0, 1, 2, p - 2, (p + 1) / 4 at 1, 31, 32, 33 and 2^16 lanes) and
-     the three xyzz point kernels against their plain versions on
-     test_bm64, Pasta and BLS12-381, exactly, with edge values and planted
+     the three xyzz point kernels (the madd and add on the carry-chain
+     element) against their plain versions on test_bm64, Pasta and
+     BLS12-381 (n32 = 2, 8, 12), exactly, with edge values and planted
      special lanes (empty bucket, point at infinity, doubling,
-     cancellation, a warp with no doubling lane);
+     cancellation, coordinates p - 1 and p - 2, a warp with no doubling
+     lane), and the madd through a gather table and a slot index
+     (negated rows, the zero row, repeated rows);
   7. drives the MSM main path, BLS12-381 G1 2^24 through
      `MSMContext.set_points` + `invoke` on device-resident scalar words,
      with the launch counts set to 0 just before and read just after;
@@ -33,8 +36,10 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      integrate);
   8. drives Pasta G1 2^20 the same way (oracle, 2^10 checks);
   9. times both MSMs; profiles one 2^24 invoke for its peak memory, busy
-     share and phases (the stages' record_function ranges) and its device
-     time by kernel; times each MSM kernel alone at its main-path shapes,
+     share and phases (the stages' record_function ranges), its device
+     time by kernel and the kernels of its gather (the slot index: no
+     index_select over the point table); times each MSM kernel alone at
+     its main-path shapes (the madd through the table and the slot index),
      beside the plain versions and the bounds;
  10. holds the wide NTT kernels (bigmont_ntt_rows, bigmont_ntt_cols,
      bigmont_ntt_mid) against their plain versions on test_bm64_fr, BN254
@@ -56,7 +61,8 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      lane pair of threads per point, / dbl) against their plain versions
      on test_bm64_g2, BN254, BLS12-381 and BLS12-377 G2 (nonresidues 7,
      -1, -1, -5), exactly, with the planted lanes of phase 6, point-major
-     slab rows, a warp with no special lane, warps of 16 buckets with
+     rows, a gather table and a slot index, a warp with no special lane,
+     warps of 16 buckets with
      exactly one doubling pair and one pair at infinity (madd), warps of
      16 lanes with exactly one doubling, infinite or cancelling lane
      (add), and 1, 17 and 65 lanes;
@@ -322,6 +328,52 @@ def ec_cases(curve, n, dev, seed):
     return p, a, q
 
 
+def edge_lanes(curve, p, a, q):
+    """p, a, q of ec_cases with lanes 40..43 at coordinates p - 1 and
+    p - 2 (the carry chains' edge; test_bm64's p has no spare bit): 40 all
+    p - 1, 41 all p - 2, 42 and 43 the bucket at one, the points at the
+    other."""
+    import torch
+    from sppark_tpu_torch.ff.kernels import int_words
+    from sppark_tpu_torch.params import get_curve
+
+    cp = get_curve(curve)
+    fp = cp.field
+
+    def col(v):
+        w = np.array(int_words(v, fp.n_ref_limbs) * cp.degree,
+                     dtype=np.uint32)
+        return torch.from_numpy(w.view(np.int32)).to(p[0].device)
+
+    m1, m2 = col(fp.modulus - 1), col(fp.modulus - 2)
+    p, a, q = ([c.clone() for c in t] for t in (p, a, q))
+    for lane, bucket, other in ((40, m1, m1), (41, m2, m2), (42, m1, m2),
+                                (43, m2, m1)):
+        for c in p:
+            c[:, lane] = bucket
+        for c in a + q:
+            c[:, lane] = other
+    return tuple(p), tuple(a), tuple(q)
+
+
+def table_case(curve, a, n, seed):
+    """The gather table of the affine points a (slab.point_rows) as two
+    (W, rows) coordinates, and n slot indices into it: points, negated
+    points, the zero row, repeated rows."""
+    import torch
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import slab
+
+    rows = slab.point_rows(get_curve_ops(curve, FK.PLAIN).F, *a)
+    w = a[0].shape[0]
+    m = rows.shape[0]
+    idx = np.random.default_rng(seed).integers(0, m, size=n)
+    idx[:6] = [0, m // 2, m - 1, m - 1, 5, 5]
+    return (rows[:, :w].T, rows[:, w:].T), torch.from_numpy(
+        idx.astype(np.int32)).to(rows.device)
+
+
 def msm_input(curve, lg, dev, base=None):
     """The reference bench protocol (bench.py:287-301, 322-328): 2^11
     distinct random points (or the given `base`) tiled to 2^lg with
@@ -564,9 +616,10 @@ EC_OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
 
 def kernel_group(name):
     """A device event's name, the point and field kernels by their op."""
-    m = re.search(r"ec_kernel<mont::(Fp2Pair|Fp2|Fp)<\d+>, ?(\d)>", name)
+    m = re.search(r"ec_kernel<mont::(FpCC|Fp2Pair|Fp2|Fp)<\d+>, ?(\d)>",
+                  name)
     if m:
-        return ("ec_" if m.group(1) == "Fp" else "ec_fp2_") + \
+        return ("ec_" if m.group(1) in ("Fp", "FpCC") else "ec_fp2_") + \
             EC_OPS[int(m.group(2))]
     for kernel in ("ew_kernel", "pow_kernel", "inv_up", "inv_down"):
         if f"{kernel}<" in name:
@@ -577,7 +630,8 @@ def kernel_group(name):
 def profile_breakdown(prof):
     """From one profiled invoke: (device busy ms, {range: (device ms, host
     ms)} over the stages' record_function ranges, {kernel: (device ms,
-    launches)}).  A device event belongs to the range whose host interval
+    launches)}, {range: the kernels launched in it}).  A device event
+    belongs to the range whose host interval
     holds the runtime call that launched it (matched by CUPTI correlation
     id): the kernels launched through ctypes carry no link to the torch op
     around them.  The device-side copies of the ranges are not work."""
@@ -595,6 +649,7 @@ def profile_breakdown(prof):
         elif e.name().startswith("cu"):        # CUDA runtime / driver call
             launched_at[e.correlation_id()] = e.start_ns()
     phases = {k: [0.0, 0.0] for k in MSM_RANGES}
+    launched = {k: set() for k in MSM_RANGES}
     for lo, hi, name in spans:
         phases[name][1] += (hi - lo) / 1e6
     spans.sort()
@@ -612,13 +667,17 @@ def profile_breakdown(prof):
         j = bisect.bisect_right(starts, at) - 1 if at is not None else -1
         if j >= 0 and at < spans[j][1]:
             phases[spans[j][2]][0] += ms
-    return busy, {k: tuple(v) for k, v in phases.items()}, by_kernel
+            launched[spans[j][2]].add(k)
+    return busy, {k: tuple(v) for k, v in phases.items()}, by_kernel, \
+        launched
 
 
 def point_kernel_cases(curve, ctx, wd, M, S, A):
     """The three point kernels of `curve` at its main path's shapes, on the
     main path's data: madd on group 0's accumulators after two rounds and
-    slot 2, add on those accumulators and their right neighbours, dbl on
+    round 2's points, read from the gather table through the slot index
+    (its bytes: the accumulators, the point row and the index word a
+    lane), add on those accumulators and their right neighbours, dbl on
     the window sums.  M, S, A: the 32-bit operations of one product,
     squaring and addition of the coordinate field; only lanes that take
     the fast leg are counted.  Returns (cases for time_kernels: name,
@@ -634,11 +693,13 @@ def point_kernel_cases(curve, ctx, wd, M, S, A):
     sv, row_src, row_len = st.schedule(wd)[:3]
     win = st.window_sums(wd, ctx.rows)
     g = slice(0, wg)
-    sl = slab.materialize(sv[g], row_src[g], row_len[g], cap, ctx.rows)
-    acc = slab.madd_rounds(curve, sl, 2)
+    idx = slab.slot_index(sv[g], row_src[g], row_len[g], cap)
+    acc = slab.madd_rounds(curve, ctx.rows, idx, 2)
     W = acc[0].shape[0]
-    a2 = (sl[2][:, :W].T, sl[2][:, W:].T)
-    del sl
+    table = (ctx.rows[:, :W].T, ctx.rows[:, W:].T)
+    i2 = idx[2].clone()
+    del idx
+    a2 = tuple(c.index_select(1, i2) for c in table)
     partner = tuple(torch.roll(c, -1, dims=-1) for c in acc)
     lanes = acc[0].shape[1]
     live = lambda c: (c != 0).any(dim=0)                 # noqa: E731
@@ -649,9 +710,9 @@ def point_kernel_cases(curve, ctx, wd, M, S, A):
     dbl_a4 = M + S + A if cp.a4 else 0
     pre = "ec_xyzz_" if cp.fp2 is None else "ec_fp2_xyzz_"
     cases = [
-        (pre + "madd", lanes, lambda: EK.xyzz_madd(curve, acc, a2),
-         lambda: EK.xyzz_madd_plain(curve, acc, a2),
-         10 * 4 * W * lanes, madd_full * (8 * M + 2 * S + 7 * A)),
+        (pre + "madd", lanes, lambda: EK.xyzz_madd(curve, acc, table, i2),
+         lambda: EK.xyzz_madd_plain(curve, acc, table, i2),
+         (10 * W + 1) * 4 * lanes, madd_full * (8 * M + 2 * S + 7 * A)),
         (pre + "add", lanes, lambda: EK.xyzz_add(curve, acc, partner),
          lambda: EK.xyzz_add_plain(curve, acc, partner),
          12 * 4 * W * lanes, add_full * (12 * M + 2 * S + 7 * A)),
@@ -705,7 +766,7 @@ def msm_times(ctx, wd, curve, lg, card):
         torch.cuda.synchronize()
         t_prof = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated() / 2**30
-    busy, phases, by_kernel = profile_breakdown(prof)
+    busy, phases, by_kernel, launched = profile_breakdown(prof)
     print(f"MSM {curve} 2^{lg}: peak device memory {peak:.3f} GiB, of "
           f"which {resident:.3f} GiB was allocated before the invoke (the "
           f"gather table, the scalars, earlier phases' caches); "
@@ -730,6 +791,17 @@ def msm_times(ctx, wd, curve, lg, card):
           + ", ".join(f"{k} {ms:.4f} ({c})" for k, (ms, c) in sorted(
               by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
           + f"  [{card}]", flush=True)
+    if not isinstance(ctx.stages, MSMTreeStages):
+        # the slab's gather is the slot index: no index_select over the
+        # point table, whose rows the madd reads through the index
+        gather = sorted(launched["msm.gather"])
+        print(f"MSM {curve} 2^{lg} kernels in msm.gather: {gather}",
+              flush=True)
+        if busy > 0:
+            check(bool(gather) and not any("indexSelect" in k
+                                           for k in gather),
+                  f"MSM {curve} 2^{lg}: msm.gather launched no "
+                  f"index_select")
     return t_msm, peak, resident, busy, t_prof, phases, by_kernel
 
 
@@ -783,6 +855,20 @@ def msm_phases(dev, card, rate):
              EK.xyzz_add_plain(curve, p, q), f"{curve} add, planted lanes")
         same("ec_xyzz_dbl", EK.xyzz_dbl(curve, p),
              EK.xyzz_dbl_plain(curve, p), f"{curve} dbl, planted lanes")
+        # coordinates p - 1 and p - 2, for the carry chains
+        pe, ae, qe = edge_lanes(curve, p, a, q)
+        same("ec_xyzz_madd", EK.xyzz_madd(curve, pe, ae),
+             EK.xyzz_madd_plain(curve, pe, ae),
+             f"{curve} madd, coordinates p - 1 and p - 2")
+        same("ec_xyzz_add", EK.xyzz_add(curve, pe, qe),
+             EK.xyzz_add_plain(curve, pe, qe),
+             f"{curve} add, coordinates p - 1 and p - 2")
+        # through a table and its slot index: the slab's gather fused
+        table, idx = table_case(curve, a, 1000, seed=12)
+        same("ec_xyzz_madd", EK.xyzz_madd(curve, p, table, idx),
+             EK.xyzz_madd_plain(curve, p, table, idx),
+             f"{curve} madd through a table and a slot index (negated "
+             f"rows, the zero row, repeated rows)")
         # no doubling lane anywhere (the gated leg never runs)
         k = 32
         same("ec_xyzz_madd",
@@ -1344,13 +1430,19 @@ def g2_phases(dev, card, rate):
              EK.xyzz_add_plain(curve, p, q), f"{curve} add, planted lanes")
         same("ec_fp2_xyzz_dbl", EK.xyzz_dbl(curve, p),
              EK.xyzz_dbl_plain(curve, p), f"{curve} dbl, planted lanes")
-        # the affine points as point-major rows, as the slab gives them
+        # the affine points as point-major rows, and through a table and
+        # its slot index, as the slab gives them
         rows = torch.cat([a[0], a[1]]).T.contiguous()
         w = a[0].shape[0]
         same("ec_fp2_xyzz_madd",
              EK.xyzz_madd(curve, p, (rows[:, :w].T, rows[:, w:].T)),
              EK.xyzz_madd_plain(curve, p, a),
              f"{curve} madd on point-major rows")
+        table, idx = table_case(curve, a, 1000, seed=12)
+        same("ec_fp2_xyzz_madd", EK.xyzz_madd(curve, p, table, idx),
+             EK.xyzz_madd_plain(curve, p, table, idx),
+             f"{curve} madd through a table and a slot index (negated "
+             f"rows, the zero row, repeated rows)")
         k = 32      # one warp with no special lane
         same("ec_fp2_xyzz_madd",
              EK.xyzz_madd(curve, tuple(c[:, :k] for c in p),
@@ -2452,8 +2544,8 @@ def main():
             if m:
                 args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
                 entry = m.group(1) + (f"<{','.join(args)}>" if args else "")
-            m = re.search(r"ec_kernelIN4mont\d+(Fp2Pair|Fp2|Fp)ILi(\d+)EEELi"
-                          r"(\d)E", line)
+            m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi(\d+)"
+                          r"EEELi(\d)E", line)
             if m:
                 entry = (f"ec_kernel<{m.group(1)}<{m.group(2)}>,"
                          f"{EC_OPS[int(m.group(3))]}>")

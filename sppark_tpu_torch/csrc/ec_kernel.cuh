@@ -1,10 +1,11 @@
 // The point kernels' body and launch, shared by ec_xyzz.cu and
-// ec_pair.cu (G1, element mont::Fp<N>) and ec_fp2_*.cu (G2): one point (or
-// pair) per thread, or per lane pair of threads (Elem<E>::THREADS), the
-// formulas of xyzz.cuh and pair.cuh.  The G2 madd, add and pair finish run
-// on the lane pair (mont::Fp2Pair<N>: thread 2i holds c0 of lane i, thread
-// 2i + 1 holds c1); the G2 dbl and pair prep keep one thread a lane
-// (mont::Fp2<N>).
+// ec_pair.cu (G1) and ec_fp2_*.cu (G2): one point (or pair) per thread, or
+// per lane pair of threads (Elem<E>::THREADS), the formulas of xyzz.cuh and
+// pair.cuh.  The G1 madd and add run on the carry-chain element
+// (mont::FpCC<N>, mont_cc.cuh), the G1 dbl and pair kernels on mont::Fp<N>.
+// The G2 madd, add and pair finish run on the lane pair (mont::Fp2Pair<N>:
+// thread 2i holds c0 of lane i, thread 2i + 1 holds c1); the G2 dbl and
+// pair prep keep one thread a lane (mont::Fp2<N>).
 //
 // Operands: each input coordinate is a (W, n) view, W = N words for Fp<N>
 // and 2 N for the fp2 elements (c0's words, then c1's), given by a pointer
@@ -13,7 +14,12 @@
 // the MSM's slab or of the tree's level 0 (sw = 1, sl = 2 W; the even or
 // odd rows: sl = 4 W), the even or odd lanes of a tree level (sw = m,
 // sl = 2) and broadcast constants (sl = 0) without a copy; the finish's
-// flag word is a view of one word.  The output is one contiguous (rows, n)
+// flag word is a view of one word.  The madd's affine point may be a table
+// read through an index (the slab MSM's gather, fused into the load): lane
+// i then reads row idx[i] of the view, 16 bytes at a time where the rows
+// are point-major and aligned (sw = 1; a G1 row at n32 = 12 is 96 bytes,
+// three full sectors), so the MSM writes and reads back no slab of points.
+// The output is one contiguous (rows, n)
 // block, stored coalesced: (4 W, n) for the xyzz ops, den then the flags,
 // (W + 1, n), for the pair prep, (x, y), (2 W, n), for the pair finish.
 //
@@ -32,6 +38,7 @@
 
 #include <cuda_runtime.h>
 
+#include "mont_cc.cuh"
 #include "pair.cuh"
 #include "xyzz.cuh"
 
@@ -42,6 +49,9 @@ constexpr int THREADS = 128;
 struct View {
     const uint32_t* p;
     long long sw, sl;
+    const int32_t* idx;     // a table's index: lane i reads row idx[i]
+    long long rows;         // the table's rows: an index past them traps
+    bool vec;               // sw == 1, p and every row 16-byte aligned
 };
 
 enum Op { MADD = 0, ADD = 1, DBL = 2, PAIR_PREP = 3, PAIR_FINISH = 4 };
@@ -55,31 +65,68 @@ struct Args {
     bool rows;      // the finish's point operands are contiguous rows
 };
 
-template <int N>
-__device__ __forceinline__ void load(const View& v, long long i, int w0,
-                                     mont::Fp<N>& r) {
+// N words of an element, from its word w0: lane i's, or for the madd's
+// affine point (TABLE) row idx[i] of the table where the view has an index
+template <bool TABLE, int N>
+__device__ __forceinline__ void load_words(const View& v, long long i,
+                                           int w0, uint32_t* r) {
+    if constexpr (TABLE) {
+        long long row = v.idx ? (long long)__ldg(v.idx + i) : i;
+        // as PyTorch's own index kernels do: a bad index stops the kernel
+        if (v.idx && (unsigned long long)row >= (unsigned long long)v.rows)
+            __trap();
+        const uint32_t* at = v.p + row * v.sl + w0 * v.sw;
+        if constexpr (N % 4 == 0) {
+            if (v.vec) {
 #pragma unroll
-    for (int w = 0; w < N; w++) r.w[w] = v.p[(w0 + w) * v.sw + i * v.sl];
+                for (int q = 0; q < N / 4; q++) {
+                    uint4 x = __ldg(reinterpret_cast<const uint4*>(at) + q);
+                    r[4 * q] = x.x;
+                    r[4 * q + 1] = x.y;
+                    r[4 * q + 2] = x.z;
+                    r[4 * q + 3] = x.w;
+                }
+                return;
+            }
+        }
+#pragma unroll
+        for (int w = 0; w < N; w++) r[w] = at[w * v.sw];
+    } else {
+#pragma unroll
+        for (int w = 0; w < N; w++) r[w] = v.p[(w0 + w) * v.sw + i * v.sl];
+    }
 }
 
-template <int N>
+template <bool TABLE = false, int N>
+__device__ __forceinline__ void load(const View& v, long long i, int w0,
+                                     mont::Fp<N>& r) {
+    load_words<TABLE, N>(v, i, w0, r.w);
+}
+
+template <bool TABLE = false, int N>
+__device__ __forceinline__ void load(const View& v, long long i, int w0,
+                                     mont::FpCC<N>& r) {
+    load_words<TABLE, N>(v, i, w0, r.w);
+}
+
+template <bool TABLE = false, int N>
 __device__ __forceinline__ void load(const View& v, long long i, int w0,
                                      mont::Fp2<N>& r) {
-    load(v, i, w0, r.c0);
-    load(v, i, w0 + N, r.c1);
+    load<TABLE>(v, i, w0, r.c0);
+    load<TABLE>(v, i, w0 + N, r.c1);
 }
 
 // a lane pair: the even thread reads c0's words, the odd thread c1's
-template <int N>
+template <bool TABLE = false, int N>
 __device__ __forceinline__ void load(const View& v, long long i, int w0,
                                      mont::Fp2Pair<N>& r) {
-    load(v, i, w0 + (mont::pair_odd() ? N : 0), r.v);
+    load<TABLE>(v, i, w0 + (mont::pair_odd() ? N : 0), r.v);
 }
 
-template <class E>
+template <class E, bool TABLE = false>
 __device__ __forceinline__ E load(const View& v, long long i) {
     E r;
-    load(v, i, 0, r);
+    load<TABLE>(v, i, 0, r);
     return r;
 }
 
@@ -94,6 +141,13 @@ __device__ __forceinline__ xyzz::Point<E> load_point(const View* v,
 template <int N>
 __device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
                                       long long row, const mont::Fp<N>& a) {
+#pragma unroll
+    for (int w = 0; w < N; w++) out[(row + w) * n + i] = a.w[w];
+}
+
+template <int N>
+__device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
+                                      long long row, const mont::FpCC<N>& a) {
 #pragma unroll
     for (int w = 0; w < N; w++) out[(row + w) * n + i] = a.w[w];
 }
@@ -160,14 +214,10 @@ __device__ __forceinline__ void finish(const Args<mont::Elem<E>::BASE>& a,
     store(a.out, a.n, i, W, oy);
 }
 
-// __launch_bounds__ gives ptxas no minimum of blocks an SM, so it picks
-// each kernel's registers itself.  A minimum of 1, 3 or 4 blocks was timed
-// on the H100 (variants.py, PERF.md): none ran faster than ptxas's own
-// choice for the lane-pair add and finish, and a minimum of 1 gave the G1
-// madd 214 registers where ptxas picks 166, and 13% more time.
+// The body of every point kernel.
 template <class E, int OP>
-__global__ void __launch_bounds__(THREADS)
-ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
+__device__ __forceinline__ void point_op(
+    const Args<mont::Elem<E>::BASE>& a) {
     // lane i: one thread, or the lane pair (2i, 2i + 1), which exits or
     // runs on together
     constexpr int T = mont::Elem<E>::THREADS;
@@ -212,8 +262,8 @@ ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
     }
     xyzz::Point<E> r;
     if (OP == MADD) {
-        r = xyzz::madd(load_point<E>(a.in, i), load<E>(a.in[4], i),
-                       load<E>(a.in[5], i), a.c);
+        r = xyzz::madd(load_point<E>(a.in, i), load<E, true>(a.in[4], i),
+                       load<E, true>(a.in[5], i), a.c);
     } else if (OP == ADD) {
         r = xyzz::add(load_point<E>(a.in, i), load_point<E>(a.in + 4, i),
                       a.c);
@@ -226,16 +276,48 @@ ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
     store(a.out, a.n, i, 3 * W, r.zzz);
 }
 
+// __launch_bounds__ gives ptxas no minimum of blocks an SM, so it picks
+// each kernel's registers itself.  A minimum of 1, 3 or 4 blocks was timed
+// on the H100 (variants.py, PERF.md): none ran faster than ptxas's own
+// choice for the lane-pair add and finish or the G1 madd on mont::Fp.
+template <class E, int OP>
+__global__ void __launch_bounds__(THREADS)
+ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
+    point_op<E, OP>(a);
+}
+
+template <class E>
+constexpr bool carry_chains = false;
+template <int N>
+constexpr bool carry_chains<mont::FpCC<N>> = true;
+
+namespace min3 {
+// The G1 madd and add on the carry-chain element ask for 3 blocks an SM:
+// ptxas then fits them in 168 registers with a few spilled words, where
+// it picks 178 and 212 (2 blocks an SM), and they ran 7% and 12% faster
+// on the H100 (variants.py, PERF.md).
+template <class E, int OP>
+__global__ void __launch_bounds__(THREADS, 3)
+ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
+    point_op<E, OP>(a);
+}
+}  // namespace min3
+
 template <class E, int OP>
 void launch(const long long* views, int n_in, uint32_t* out, long long n,
             const uint32_t* consts, cudaStream_t s) {
     constexpr int N = mont::Elem<E>::BASE;
     Args<N> a;
     for (int k = 0; k < 8; k++) {
+        const long long* v = views + 5 * k;
         bool used = k < n_in;
-        a.in[k].p = used ? (const uint32_t*)views[3 * k] : nullptr;
-        a.in[k].sw = used ? views[3 * k + 1] : 0;
-        a.in[k].sl = used ? views[3 * k + 2] : 0;
+        a.in[k].p = used ? (const uint32_t*)v[0] : nullptr;
+        a.in[k].sw = used ? v[1] : 0;
+        a.in[k].sl = used ? v[2] : 0;
+        a.in[k].idx = used ? (const int32_t*)v[3] : nullptr;
+        a.in[k].rows = used ? v[4] : 0;
+        a.in[k].vec = used && v[1] == 1 && (v[0] & 15) == 0 &&
+                      (v[2] * 4) % 16 == 0;
     }
     a.out = out;
     a.n = n;
@@ -246,15 +328,20 @@ void launch(const long long* views, int n_in, uint32_t* out, long long n,
     a.rows = OP == PAIR_FINISH && mont::Elem<E>::THREADS == 2 &&
              (views[0] & 15) == 0;
     for (int k = 0; k < 4; k++)
-        a.rows = a.rows && views[3 * k] == views[0] + 4 * k * W &&
-                 views[3 * k + 1] == 1 && views[3 * k + 2] == 4 * W;
+        a.rows = a.rows && views[5 * k] == views[0] + 4 * k * W &&
+                 views[5 * k + 1] == 1 && views[5 * k + 2] == 4 * W;
     long long threads = n * mont::Elem<E>::THREADS;
     unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-    ec_kernel<E, OP><<<blocks, THREADS, 0, s>>>(a);
+    if constexpr (carry_chains<E>)
+        min3::ec_kernel<E, OP><<<blocks, THREADS, 0, s>>>(a);
+    else
+        ec_kernel<E, OP><<<blocks, THREADS, 0, s>>>(a);
 }
 
-// The launch for base width n32 of element family F (mont::Fp, mont::Fp2
-// or mont::Fp2Pair): N = 2, 8 or 12; another width is refused.
+// The launch for base width n32 of element family F (mont::Fp,
+// mont::FpCC, mont::Fp2 or mont::Fp2Pair): N = 2, 8 or 12; another width is
+// refused.  views: [pointer, sw, sl, index or 0, the index's table rows]
+// per input coordinate.
 template <template <int> class F, int OP>
 int dispatch(int n32, const void* views, int n_in, void* out, long long n,
              const void* consts, void* stream) {

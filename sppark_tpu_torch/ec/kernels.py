@@ -17,11 +17,14 @@ version, over plain field arithmetic.  Each launch adds one to
 Every coordinate is `(W, *batch)` int32 words, W = n32 for G1 and 2 n32
 for G2 (c0's words, then c1's); batch shapes broadcast.  An input
 coordinate reaches the kernel as a view (a pointer and its word and lane
-strides) when its batch dimensions merge into one, so slices of the MSM's
-slab, the even and odd slots of a tree level and broadcast constants are
-read in place; the output is one new block: (4, W, *batch) for the xyzz
-ops, returned as four coordinates; den and a flag word per lane for the
-pair prep; (x, y) for the pair finish.
+strides) when its batch dimensions merge into one, so the even and odd
+slots of a tree level and broadcast constants are read in place; the
+output is one new block: (4, W, *batch) for the xyzz ops, returned as four
+coordinates; den and a flag word per lane for the pair prep; (x, y) for
+the pair finish.  The madd's affine point may instead be a table, two
+(W, rows) coordinates, and an int32 index of one row per lane: the slab
+MSM's point table and slot index (msm/slab.py), read by the kernel in
+place of a gathered slab.
 """
 
 from __future__ import annotations
@@ -87,15 +90,19 @@ def kernel_name(op: str, curve: str) -> str:
     return ("ec_" if get_curve(curve).degree == 1 else "ec_fp2_") + op
 
 
-def _launch(op: str, curve: str, coords, flags=None):
+def _launch(op: str, curve: str, coords, flags=None, idx=None):
     """Run op on the card over `coords` (and, for the pair finish, the
-    flag word per lane).  Returns the output block (rows, *batch): 4 W
-    rows for the xyzz ops, W + 1 for the pair prep, 2 W for the finish."""
+    flag word per lane; for the madd with `idx`, the last two coordinates
+    are a table whose row idx[i] lane i reads).  Returns the output block
+    (rows, *batch): 4 W rows for the xyzz ops, W + 1 for the pair prep,
+    2 W for the finish."""
     cp = get_curve(curve)
     degree = cp.degree
     name = kernel_name(op, curve)
     FK.check_words(name, cp.field, *coords, degree=degree)
-    coords = list(torch.broadcast_tensors(*coords))
+    table = () if idx is None else tuple(coords[-2:])
+    coords = list(torch.broadcast_tensors(*coords[:len(coords)
+                                                  - len(table)]))
     n32, words = cp.field.n_ref_limbs, coords[0].shape[0]
     batch = tuple(coords[0].shape[1:])
     if flags is not None:
@@ -111,10 +118,15 @@ def _launch(op: str, curve: str, coords, flags=None):
                       device=coords[0].device)
     if n == 0:
         return out
-    views = np.empty(3 * len(coords), dtype=np.int64)
     kept = [c.reshape(c.shape[0], n) for c in coords]  # a copy only if needed
+    kept += table
+    views = np.zeros(5 * len(kept), dtype=np.int64)
     for k, v in enumerate(kept):
-        views[3 * k:3 * k + 3] = (v.data_ptr(), v.stride(0), v.stride(1))
+        views[5 * k:5 * k + 3] = (v.data_ptr(), v.stride(0), v.stride(1))
+    if idx is not None:
+        idx = idx.contiguous()
+        views[5 * len(coords) + 3::5] = idx.data_ptr()
+        views[5 * len(coords) + 4::5] = table[0].shape[1]
     with torch.cuda.device(out.device):
         rc = getattr(_lib(name), name)(
             n32, views.ctypes.data, out.data_ptr(), n,
@@ -134,10 +146,35 @@ def _on_cpu(coords) -> bool:
     return all(c.device.type == "cpu" for c in coords)
 
 
+def _check_idx(curve: str, p, a, idx) -> None:
+    """Refuse a table index the madd cannot take: other than a 1-D int32
+    tensor of p's lanes (every coordinate of p (W, n), not broadcast) on
+    p's device, or a table other than two (W, rows)
+    coordinates of fewer than 2^31 rows.  An index value outside [0,
+    rows) makes the plain version raise and the kernel trap, as PyTorch's
+    own index kernels do."""
+    name = kernel_name("xyzz_madd", curve)
+    if not isinstance(idx, torch.Tensor) or idx.dtype != torch.int32:
+        raise TypeError(f"{name}: idx must be an int32 tensor")
+    lanes = tuple(p[0].shape[1:])
+    if idx.device != p[0].device or idx.ndim != 1 or any(
+            tuple(c.shape[1:]) != tuple(idx.shape) for c in p):
+        raise ValueError(f"{name}: idx must be a 1-D tensor of p's "
+                         f"{lanes} lanes on {p[0].device}")
+    if len(a) != 2 or any(c.ndim != 2 or c.shape[1] != a[0].shape[1]
+                          for c in a) or a[0].shape[1] >= 1 << 31:
+        raise ValueError(f"{name}: the table must be two (W, rows) "
+                         f"coordinates of fewer than 2^31 rows")
+
+
 # -- plain versions ------------------------------------------------------------------
 
-def xyzz_madd_plain(curve: str, p, a):
-    """Plain version of ec_xyzz_madd and ec_fp2_xyzz_madd."""
+def xyzz_madd_plain(curve: str, p, a, idx=None):
+    """Plain version of ec_xyzz_madd and ec_fp2_xyzz_madd; with `idx`, the
+    table a's rows idx gathered first."""
+    if idx is not None:
+        _check_idx(curve, p, a, idx)
+        a = tuple(c.index_select(1, idx) for c in a)
     return get_curve_ops(curve, FK.PLAIN).xyzz_madd(p, a)
 
 
@@ -207,12 +244,16 @@ def affine_pair_finish_plain(curve: str, l, r, inv, flags):
 
 # -- kernels -------------------------------------------------------------------------
 
-def xyzz_madd(curve: str, p, a):
-    """Bucket p (x, y, zz, zzz) += affine a (x, y), lane by lane."""
+def xyzz_madd(curve: str, p, a, idx=None):
+    """Bucket p (x, y, zz, zzz) += affine a (x, y), lane by lane; with
+    `idx` (int32, one per lane), lane i adds row idx[i] of the point table
+    a, two (W, rows) coordinates."""
     coords = tuple(p) + tuple(a)
     if _on_cpu(coords):
-        return xyzz_madd_plain(curve, p, a)
-    return _xyzz(_launch("xyzz_madd", curve, coords))
+        return xyzz_madd_plain(curve, p, a, idx)
+    if idx is not None:
+        _check_idx(curve, p, a, idx)
+    return _xyzz(_launch("xyzz_madd", curve, coords, idx=idx))
 
 
 def xyzz_add(curve: str, p, q):

@@ -142,7 +142,9 @@ class _Stages:
 
     def _slot_bytes(self) -> int:
         """One point-major slot: two coordinates of W 32-bit words (W =
-        n32, or 2 n32 for G2)."""
+        n32, or 2 n32 for G2).  The slab now holds a 4-byte index a slot
+        (slab.slot_index), but the budget still counts the point, so the
+        window grouping and the launch shapes stay as they were."""
         return 2 * self.ops.F.words * 4
 
     def integrate(self, bucket):

@@ -5,14 +5,15 @@ sppark_tpu/msm/slab.py.
     matrix, the slab: a bucket with occ <= cap owns one row, a bucket with
     occ > cap spills into ceil(occ / cap) consecutive replica rows drawn
     from a fixed budget, so the work stays linear in n for any scalars.
-  * Points land in the slab through ONE row gather per window group
-    (`index_select` over a point-major table; as the JAX package left its
-    gather to XLA, this stays plain PyTorch).  The table holds every point,
-    then every point negated, then the zero row, so the gather also applies
-    each digit's sign and blanks the empty slots: a slab round needs no
-    other work than its madd.
-  * Round r adds slab slice [r] into per-row xyzz accumulators with one
-    madd kernel launch over all rows of the group.
+  * Slot r of row s names a row of the point-major gather table: the table
+    holds every point, then every point negated, then the zero row, so the
+    index also applies each digit's sign and blanks the empty slots.  The
+    slot index, (cap, wg * S) int32, is built once per window group; no
+    slab of points is materialized (the JAX package gathers one, with
+    XLA): the madd reads each lane's point from the table through the
+    index, a slab round needs no other work than its madd.
+  * Round r adds the table's rows index[r] into per-row xyzz accumulators
+    with one madd kernel launch over all rows of the group.
   * Replica rows fold back into their bucket by a pairwise tree of adds
     (lg(max rows per bucket) launches); bucket b's sum is at its rank-0 row.
 
@@ -108,10 +109,10 @@ def point_rows(F: BigMontField | Fp2Field, px, py):
     return rows.contiguous()
 
 
-def materialize(sorted_val, row_src, row_len, cap: int, rows):
-    """The slab: ONE gather per window group.  Returns (cap, wg * S,
-    2 W) int32, slot r of row s holding the r-th point of the row's run,
-    signed, or the zero point past the run's end."""
+def slot_index(sorted_val, row_src, row_len, cap: int):
+    """The slot index of one window group: (cap, wg * S) int32, slot r of
+    row s the gather table's row of the r-th point of the row's run, signed
+    (n + i for -point i), or 2n, the zero row, past the run's end."""
     wg, S = row_src.shape
     n = sorted_val.shape[-1]
     r = torch.arange(cap, dtype=torch.int64, device=row_src.device)
@@ -121,19 +122,20 @@ def materialize(sorted_val, row_src, row_len, cap: int, rows):
     valid = r[:, None, None] < row_len[None]
     gidx = torch.where(valid, (payload & IDX_MASK) + n * (payload >> 31),
                        2 * n)
-    return rows.index_select(0, gidx.reshape(-1)).reshape(
-        cap, wg * S, rows.shape[1])
+    return gidx.reshape(cap, wg * S).to(torch.int32)
 
 
-def madd_rounds(curve: str, slab, rounds: int, kern: Kernels = KERNELS):
-    """Rounds 0..rounds-1: each row's accumulator += its slot r.  Returns
-    the accumulators, four (W, wg * S) coordinates of W words each."""
-    w = slab.shape[-1] // 2
-    acc = (torch.zeros((w, slab.shape[1]), dtype=torch.int32,
-                       device=slab.device),) * 4
+def madd_rounds(curve: str, rows, idx, rounds: int,
+                kern: Kernels = KERNELS):
+    """Rounds 0..rounds-1: each row's accumulator += the table's row
+    idx[r] (rows: the gather table, idx: the slot index).  Returns the
+    accumulators, four (W, wg * S) coordinates of W words each."""
+    w = rows.shape[1] // 2
+    table = (rows[:, :w].T, rows[:, w:].T)
+    acc = (torch.zeros((w, idx.shape[1]), dtype=torch.int32,
+                       device=rows.device),) * 4
     for r in range(rounds):
-        pt = slab[r]
-        acc = kern.madd(curve, acc, (pt[:, :w].T, pt[:, w:].T))
+        acc = kern.madd(curve, acc, table, idx[r])
     return acc
 
 
@@ -164,14 +166,14 @@ def extract(acc, first_row):
 def accumulate(curve: str, cap: int, sorted_val, row_src, row_len,
                row_bucket, row_rank, first_row, stats, rows,
                kern: Kernels = KERNELS):
-    """Bucket sums of one window group: gather, madd rounds, replica fold,
-    extraction.  `stats` is the schedule's [max row_len, max rows per
-    bucket] as ints."""
+    """Bucket sums of one window group: the slot index, madd rounds,
+    replica fold, extraction.  `stats` is the schedule's [max row_len, max
+    rows per bucket] as ints."""
     with record_function("msm.gather"):
-        slab = materialize(sorted_val, row_src, row_len, cap, rows)
+        idx = slot_index(sorted_val, row_src, row_len, cap)
     with record_function("msm.madd_rounds"):
-        acc = madd_rounds(curve, slab, stats[0], kern)
-    del slab
+        acc = madd_rounds(curve, rows, idx, stats[0], kern)
+    del idx
     with record_function("msm.fold"):
         acc = fold_replicas(curve, acc, row_bucket, row_rank, stats[1], kern)
         return extract(acc, first_row)

@@ -2,9 +2,12 @@
 against the committed ones on one card and on the same data:
 
     python3 -m sppark_tpu_torch.variants [part of a name]
+    python3 -m sppark_tpu_torch.variants --sass [source ...]
 
 (with an argument, only the variants whose name holds it, and the
-committed kernels they replace)
+committed kernels they replace; with --sass, no timing: ptxas's registers
+and the SASS counts of the committed point kernels of the named sources,
+default all, and of the probes below)
 
 Each variant is a scratch copy of csrc/ under build/variants/ (git-ignored)
 with one change to its text.  For the lane-pair fp2 add and pair finish:
@@ -12,21 +15,28 @@ one thread a lane (`mont::Fp2`, their element before the lane pair), a
 minimum of 1, 3 or 4 blocks an SM in `__launch_bounds__` (which caps ptxas
 at 65536 / (128 blocks) registers a thread; the committed kernels give no
 minimum), or the finish's direct strided loads in place of its
-shared-memory tile of level 0's rows.  For the one-thread G1 madd: a
-minimum of 1 block.  For the batch inversion (csrc/batch_inv.cu): other
-blocks of T threads of C lanes, and in degree 2 the norm recomputed in the
-down kernel in place of the one the up kernel stores.  The point kernels'
-variants are built at n32 = 12 only.  The script
-prints ptxas's registers and spills of each, then each one's time by CUDA
-events at the main paths' shapes on random canonical words: the G2 add at
-147,456 lanes (the G2 slab's fold), every lane taking the fast leg; the
-G2 finish at level 1's 6,459,904 lanes on point-major rows, every lane a
-chord; the G1 madd at 294,912 lanes; the batch inversion's three launches
-at the trees' level 1, 12,964,864 BLS12-381 Fp lanes and 6,459,904 Fp2
-lanes.  Two rounds in opposite orders; each
-output equals the committed kernel's word for word.  The committed
-kernels' own registers are printed by chip_smoke.py.  Nothing of the port
-calls this module.
+shared-memory tile of level 0's rows.  For the G1 madd and add: their
+element before the carry chains (`mont::Fp`, with no minimum of blocks),
+or a minimum of 1 or 2 blocks, or none, in place of the committed 3.
+For the batch inversion (csrc/batch_inv.cu): other blocks of T threads of
+C lanes, and in degree 2 the norm recomputed in the down kernel in place
+of the one the up kernel stores.  The point kernels' variants are built
+at n32 = 12 only.  The script prints ptxas's registers and spills of
+each, and each N = 12 point kernel's static SASS instructions by class
+(`cuobjdump -sass`: IMAD, IMAD.MOV, IADD3, other integer, branch, memory,
+other), then each one's time by CUDA events at the main paths' shapes on
+random canonical words: the G2 add at 147,456 lanes (the G2 slab's fold),
+every lane taking the fast leg; the G2 finish at level 1's 6,459,904
+lanes on point-major rows, every lane a chord; the G1 madd at 294,912
+lanes through a table of 589,825 rows and a random slot index, and the
+G1 add at 294,912 lanes, every lane on the fast leg; the batch
+inversion's three launches at the trees' level 1, 12,964,864 BLS12-381 Fp
+lanes and 6,459,904 Fp2 lanes.  Two rounds in opposite orders; each
+output equals the committed kernel's word for word.  The probes are one
+field op of each G1 element (mul, sqr, add, sub, and a copy for the loads
+and stores around it) in a kernel of its own, whose SASS counts give the
+instructions of one op.  The committed kernels' own registers are printed
+by chip_smoke.py.  Nothing of the port calls this module.
 """
 
 from __future__ import annotations
@@ -51,6 +61,11 @@ INV_LANES = 12_964_864          # the G1 tree's level 1; G2's: FINISH_LANES
 #: the point kernels by their template's op number (csrc/ec_kernel.cuh)
 OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
 BOUNDS = "__launch_bounds__(THREADS)"
+#: the G1 madd and add's (csrc/ec_kernel.cuh: min3::ec_kernel)
+MIN3 = "__launch_bounds__(THREADS, 3)"
+#: the point kernels' sources (csrc/<source>.cu)
+POINT_SOURCES = ("ec_xyzz", "ec_pair", "ec_fp2_madd", "ec_fp2_add",
+                 "ec_fp2_dbl", "ec_fp2_pair")
 
 
 def _blocks(k):
@@ -61,7 +76,11 @@ def _blocks(k):
 def variants():
     """{name: (source, [(old, new) text substitutions])}; the name says
     what differs from the committed build."""
-    out = {"ec_xyzz madd, 1 block": ("ec_xyzz", [_blocks(1)])}
+    out = {"ec_xyzz on mont::Fp": ("ec_xyzz", [
+        ("ec::dispatch<mont::FpCC, ec::", "ec::dispatch<mont::Fp, ec::")]),
+        "ec_xyzz, no minimum": ("ec_xyzz", [(MIN3, BOUNDS)]),
+        **{f"ec_xyzz, {k} block{'s' * (k > 1)}": ("ec_xyzz", [
+            (MIN3, f"__launch_bounds__(THREADS, {k})")]) for k in (1, 2)}}
     for source, op in (("ec_fp2_add", "ADD"), ("ec_fp2_pair", "PAIR_FINISH")):
         out[f"{source} one thread a lane"] = (source, [
             (f"ec::dispatch<mont::Fp2Pair, ec::{op}>",
@@ -113,8 +132,8 @@ def _registers(log):
     """ptxas's lines for the N = 12 kernels of a build log."""
     out, entry = [], None
     for line in log.splitlines():
-        m = re.search(r"ec_kernelIN4mont\d+(Fp2Pair|Fp2|Fp)ILi12EEELi(\d)E",
-                      line)
+        m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi12EEELi"
+                      r"(\d)E", line)
         k = re.search(r"(inv_up|inv_down)ILi12ELi(\d)E", line)
         if "Compiling entry function" in line:
             entry = (f"{m.group(1)}<12>,{OPS[int(m.group(2))]}" if m else
@@ -122,6 +141,120 @@ def _registers(log):
         elif entry and ("registers" in line or "spill" in line):
             out.append(f"{entry}: {line.strip()}")
     return out
+
+
+#: SASS opcode classes, in the order sass_counts prints them
+SASS_CLASSES = ("IMAD", "IMAD.MOV", "IADD3", "other integer", "branch",
+                "memory", "other")
+def _sass_class(op):
+    if op.startswith("IMAD.MOV"):
+        return "IMAD.MOV"
+    if op.startswith(("IMAD", "IADD3")):
+        return op.split(".")[0]
+    if op.split(".")[0] in ("BRA", "BRX", "JMP", "JMX", "EXIT", "RET",
+                            "CALL", "BSSY", "BSYNC", "BREAK", "WARPSYNC",
+                            "BMOV"):
+        return "branch"
+    if re.match(r"U?(LD|ST|ATOM|RED|CCTL|DEPBAR)", op):
+        return "memory"
+    if re.match(r"(U?I|U?LOP|U?SHF|U?SEL|U?LEA|U?PLOP|P2R|R2P|U?MOV|"
+                r"U?PRMT|U?FLO|U?POPC|U?BREV|VOTE|SHFL|S2R|S2UR|CS2R)", op):
+        return "other integer"
+    return "other"
+
+
+def _sass_name(mangled):
+    """A short name for a point kernel or a probe at N = 12, else None."""
+    m = re.search(r"ec_kernelIN4mont\d+(\w+?)ILi12EEELi(\d)E", mangled)
+    if m:
+        return f"{m.group(1)}<12>,{OPS[int(m.group(2))]}"
+    m = re.fullmatch(r"probe_(\w+)", mangled)
+    return m.group(1) if m else None
+
+
+def sass_counts(lib):
+    """{kernel: {class: static instruction count}} from `cuobjdump -sass`
+    of a built library: the N = 12 point kernels and the probes, NOPs left
+    out."""
+    tool = shutil.which("cuobjdump") or str(
+        __import__("pathlib").Path(_build.nvcc()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _sass_name(m.group(1))
+            if name:
+                out[name] = dict.fromkeys(SASS_CLASSES + ("all",), 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if name and m and m.group(1) != "NOP":
+            out[name][_sass_class(m.group(1))] += 1
+            out[name]["all"] += 1
+    return out
+
+
+def _sass_line(what, counts):
+    return f"sass {what}: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items())
+
+
+#: one field op of each element at N = 12 alone, between 2 N word loads and
+#: N stores: the copy's count is the loads' and stores' own
+PROBE_OPS = {"copy": "a", "mul": "mul(a, b, c)", "sqr": "sqr(a, c)",
+             "add": "add(a, b, c)", "sub": "sub(a, b, c)"}
+
+
+def _probe():
+    """Build the probes of every G1 element the headers define; returns
+    the library."""
+    d = _build.BUILD / "variants" / "probe"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    heads = sorted(_build.CSRC.glob("mont*.cuh"))
+    elems = [e for e in ("Fp", "FpCC") if any(
+        f"struct {e} {{" in h.read_text() for h in heads)]
+    text = "".join(f'#include "{h.name}"\n' for h in heads) + """
+#define PROBE(E, NAME, EXPR)                                               \\
+    extern "C" __global__ void probe_##NAME(                               \\
+        const uint32_t* x, uint32_t* y, const mont::Consts<12> c) {        \\
+        using namespace mont;                                              \\
+        E a, b;                                                            \\
+        for (int w = 0; w < 12; w++) {                                     \\
+            a.w[w] = x[w * 128 + threadIdx.x];                             \\
+            b.w[w] = x[(12 + w) * 128 + threadIdx.x];                      \\
+        }                                                                  \\
+        E r = EXPR;                                                        \\
+        for (int w = 0; w < 12; w++) y[w * 128 + threadIdx.x] = r.w[w];    \\
+    }
+"""
+    for e in elems:
+        for op, expr in PROBE_OPS.items():
+            text += f"PROBE(mont::{e}<12>, {e}_{op}, {expr})\n"
+    (d / "probe.cu").write_text(text)
+    lib = d / "libprobe.so"
+    proc = subprocess.run([_build.nvcc(), *_build.FLAGS, "-I",
+                           str(_build.CSRC), "-o", str(lib),
+                           str(d / "probe.cu")], capture_output=True,
+                          text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc probe.cu:\n{proc.stdout}{proc.stderr}")
+    return lib
+
+
+def print_sass(sources, card):
+    """ptxas's registers and the SASS counts of the committed N = 12 point
+    kernels of `sources`, then of the probes."""
+    info = _build.build(sources)
+    for source in sources:
+        for line in _registers(info.get(source, {}).get("log", "")):
+            print(f"ptxas {source}: {line}")
+        for k, c in sass_counts(_build._target(source)).items():
+            print(_sass_line(f"{source} {k}", c) + f"  [{card}]")
+    for k, c in sass_counts(_probe()).items():
+        print(_sass_line(f"probe {k}", c) + f"  [{card}]", flush=True)
 
 
 def _load(path, source):
@@ -173,6 +306,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    if sys.argv[1:2] == ["--sass"]:
+        print_sass(sys.argv[2:] or list(POINT_SOURCES), card)
+        return 0
     t0 = time.perf_counter()
     chosen = {name: v for name, v in variants().items()
               if (sys.argv[1:] or [""])[0] in name
@@ -190,6 +326,13 @@ def main():
         libs[name] = _load(todo[name][0], chosen[name][0])
         for line in _registers(log):
             print(f"ptxas {name}: {line}")
+        if chosen[name][0] in POINT_SOURCES:
+            for k, c in sass_counts(todo[name][0]).items():
+                print(_sass_line(f"{name} {k}", c) + f"  [{card}]")
+    for source in sorted({v[0] for v in chosen.values()}
+                         & set(POINT_SOURCES)):
+        for k, c in sass_counts(_build._target(source)).items():
+            print(_sass_line(f"{source} committed {k}", c) + f"  [{card}]")
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -207,20 +350,32 @@ def main():
     inv = _fp2(p, n32, (FINISH_LANES,), rng, dev)
     flags = torch.full((FINISH_LANES,), EK.ACTIVE, dtype=torch.int32,
                        device=dev)
-    g1 = tuple(_words(p, n32, (MADD_LANES,), rng, dev) for _ in range(6))
+    g1 = tuple(_words(p, n32, (MADD_LANES,), rng, dev) for _ in range(8))
+    # the madd's points: a table of 2 MADD_LANES + 1 rows, a random row a lane
+    g1_rows = torch.cat([_words(p, n32, (2 * MADD_LANES + 1,), rng, dev)
+                         for _ in range(2)]).T.contiguous()
+    g1_table = (g1_rows[:, :n32].T, g1_rows[:, n32:].T)
+    g1_idx = torch.from_numpy(rng.integers(
+        0, 2 * MADD_LANES + 1, size=MADD_LANES).astype(np.int32)).to(dev)
     d1 = _words(p, n32, (INV_LANES,), rng, dev)
     d2 = _fp2(p, n32, (FINISH_LANES,), rng, dev)
     nr = cp.fp2.nr_small
     calls = {"ec_fp2_add": lambda: EK.xyzz_add("bls12_381_g2", pt, qt),
              "ec_fp2_pair": lambda: EK.affine_pair_finish(
                  "bls12_381_g2", l, r, inv, flags),
-             "ec_xyzz": lambda: EK.xyzz_madd("bls12_381", g1[:4], g1[4:]),
+             "ec_xyzz": lambda: EK.xyzz_madd("bls12_381", g1[:4], g1_table,
+                                             g1_idx),
+             "ec_xyzz_add": lambda: EK.xyzz_add("bls12_381", g1[:4],
+                                                g1[4:]),
              "batch_inv": lambda: [FK.mont_batch_inv(d1, cp.field)],
              "batch_inv_fp2": lambda: [FK.mont_batch_inv(d2, cp.field, 2,
                                                          nr)]}
 
-    def source_of(call):            # both degrees run batch_inv's source
-        return "batch_inv" if call == "batch_inv_fp2" else call
+    # the second call of a source: batch_inv's in degree 2, ec_xyzz's add
+    twins = {"batch_inv_fp2": "batch_inv", "ec_xyzz_add": "ec_xyzz"}
+
+    def source_of(call):
+        return twins.get(call, call)
 
     sources = {v[0] for v in chosen.values()}
     calls = {k: f for k, f in calls.items() if source_of(k) in sources}
@@ -229,15 +384,15 @@ def main():
     runs = [f"{s} committed" for s in calls]
     for name in libs:
         runs.append(name)
-        if name.startswith("batch_inv"):
-            runs.append(name.replace("batch_inv", "batch_inv_fp2", 1))
+        runs += [twin + name[len(src):] for twin, src in twins.items()
+                 if re.match(r"\w+", name).group() == src]
     times = {name: [] for name in runs}
     block = (FK.INV_THREADS, FK.INV_CHUNK)
     for order in (runs, runs[::-1]):
         for name in order:
             call = re.match(r"\w+", name).group()
             source = source_of(call)
-            variant = name.replace("batch_inv_fp2", "batch_inv", 1)
+            variant = source + name[len(call):]
             committed = _build._libs[source]
             if variant in libs:
                 _build._libs[source] = libs[variant]
@@ -257,7 +412,8 @@ def main():
                 _build._libs[source] = committed
                 FK.INV_THREADS, FK.INV_CHUNK = block
     lanes_of = {"ec_fp2_add": ADD_LANES, "ec_fp2_pair": FINISH_LANES,
-                "ec_xyzz": MADD_LANES, "batch_inv": INV_LANES,
+                "ec_xyzz": MADD_LANES, "ec_xyzz_add": MADD_LANES,
+                "batch_inv": INV_LANES,
                 "batch_inv_fp2": FINISH_LANES}
     for name in runs:
         lanes = lanes_of[re.match(r"\w+", name).group()]

@@ -466,6 +466,109 @@ def test_point_kernels_vs_plain(dev, curve):
         assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
+#: the G1 madd and add's element, mont::FpCC, at n32 = 2 (p = 2^64 - 59,
+#: no spare bit), 8 (255 and 254 bits) and 12 (381 and 377 bits)
+CC_CURVES = ["test_bm64", "pallas", "bn254", "bls12_381", "bls12_377"]
+
+
+def _carry_lanes(curve, n, dev):
+    """_point_cases with lanes 40..43 set to coordinates p - 1 and p - 2
+    (every word near its top: the carry chains' edge): 40 all p - 1, 41 all
+    p - 2, 42 and 43 the bucket at one and the points at the other."""
+    from sppark_tpu_torch.ff.kernels import int_words
+
+    p, a, q = _point_cases(curve, n, dev)
+    fp = params.get_curve(curve).field
+    deg = params.get_curve(curve).degree
+
+    def col(v):
+        return torch.tensor(int_words(v, fp.n_ref_limbs) * deg,
+                            dtype=torch.int64).to(torch.int32).to(dev)
+
+    m1, m2 = col(fp.modulus - 1), col(fp.modulus - 2)
+    p, a, q = ([c.clone() for c in t] for t in (p, a, q))
+    for lane, bucket, other in ((40, m1, m1), (41, m2, m2), (42, m1, m2),
+                                (43, m2, m1)):
+        for c in p:
+            c[:, lane] = bucket
+        for c in a + q:
+            c[:, lane] = other
+    return tuple(p), tuple(a), tuple(q)
+
+
+def _table_index(n, rows, seed, dev):
+    """n slot indices into a gather table of `rows` = 2 m + 1 rows: every
+    kind of row (a point, a negated point, the zero row 2 m), some rows
+    repeated."""
+    g = np.random.default_rng(seed)
+    idx = g.integers(0, rows, size=n)
+    idx[:6] = [0, rows // 2, rows - 1, rows - 1, 5, 5]
+    return torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("curve", CC_CURVES)
+def test_carry_chain_madd_add_vs_plain(dev, curve):
+    """The G1 madd and add on the carry-chain element against their plain
+    versions word for word: an empty bucket, the affine point at infinity
+    (the table's zero row), equal points (the doubling leg), opposite
+    points, coordinates p - 1 and p - 2, and a warp with no special lane;
+    then the madd through a table and its slot index (negated rows, the
+    zero row, repeated rows) against the plain gather and madd."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import slab
+
+    p, a, q = _carry_lanes(curve, 96, dev)
+    before = dict(EK.launches)
+    for lanes in (slice(None), slice(0, 32)):
+        pw, aw, qw = (tuple(c[:, lanes] for c in t) for t in (p, a, q))
+        for got, want in ((EK.xyzz_madd(curve, pw, aw),
+                           EK.xyzz_madd_plain(curve, pw, aw)),
+                          (EK.xyzz_add(curve, pw, qw),
+                           EK.xyzz_add_plain(curve, pw, qw))):
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(got, want)), lanes
+    rows = slab.point_rows(get_curve_ops(curve, FK.PLAIN).F, *a)
+    w = a[0].shape[0]
+    table = (rows[:, :w].T, rows[:, w:].T)
+    idx = _table_index(96, rows.shape[0], 3, dev)
+    got = EK.xyzz_madd(curve, p, table, idx)
+    torch.cuda.synchronize()
+    want = EK.xyzz_madd_plain(curve, p, table, idx)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert all(torch.equal(u, v) for u, v in zip(
+        want, EK.xyzz_madd_plain(curve, p, tuple(
+            c.index_select(1, idx) for c in table))))
+    assert {k: v - before[k] for k, v in EK.launches.items()} == {
+        "ec_xyzz_madd": 3, "ec_xyzz_add": 2, "ec_xyzz_dbl": 0,
+        "ec_pair_prep": 0, "ec_pair_finish": 0}
+
+
+@pytest.mark.parametrize("curve", ["test_bm64_g2", "bn254_g2",
+                                   "bls12_381_g2", "bls12_377_g2"])
+def test_fp2_indexed_madd_vs_plain(dev, curve):
+    """The lane-pair G2 madd through a table and its slot index (negated
+    rows, the zero row, repeated rows) against the plain gather and
+    madd."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import slab
+
+    p, a, _ = _point_cases(curve, 96, dev)
+    rows = slab.point_rows(get_curve_ops(curve, FK.PLAIN).F, *a)
+    w = a[0].shape[0]
+    table = (rows[:, :w].T, rows[:, w:].T)
+    for n in (96, 17):
+        idx = _table_index(n, rows.shape[0], n, dev)
+        pn = tuple(c[:, :n] for c in p)
+        got = EK.xyzz_madd(curve, pn, table, idx)
+        torch.cuda.synchronize()
+        want = EK.xyzz_madd_plain(curve, pn, table, idx)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), n
+
+
 def test_msm_on_card(dev):
     """test_bm64 MSM 2^10 through the entry point against msm_naive, every
     kernel of the slab MSM launched."""
