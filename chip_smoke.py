@@ -43,7 +43,9 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      beside the plain versions and the bounds;
  10. holds the wide NTT kernels (bigmont_ntt_rows, bigmont_ntt_cols,
      bigmont_ntt_mid) against their plain versions on test_bm64_fr, BN254
-     Fr and BLS12-381 Fr, every option, exactly;
+     Fr, BLS12-381 Fr, BLS12-377 Fr and Pallas, every option, with the
+     words 0, 1, p - 1 and p - 2 planted in the inputs and the multiplier,
+     exactly;
  11. drives the wide main path, a BLS12-381 Fr forward NTT of 2^26 through
      `ntt.base_dev` on device-resident words (bench.py:bench_ntt_wide),
      with the launch counts set to 0 just before and read just after;
@@ -146,11 +148,14 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      "device": {...}}.
 Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
 integer operations over the card's INT32 rate (SMs x 64 lanes x the
-maximum SM clock, read from nvidia-smi); a wide butterfly counts one
-Montgomery product (4 n32^2) and an add and a sub (2 n32 each); an fp2
+maximum SM clock, read from nvidia-smi); a radix-2 transform of length n
+counts an add and a sub for each of its (n/2) lg n butterflies and a
+product for each butterfly whose twiddle is not w^0 = 1, all but n - 1 of
+them (transform_ops): a wide product 4 n32^2, a wide add and sub 2 n32
+each, a mont32 product 9 and its add and sub 6, counted from
+csrc/ntt_mont32.cu, a Goldilocks product 12 and its add and sub 8; an fp2
 product 3 products and its additions, an fp2 squaring 2 squarings, a
-product and its additions (fp2_ops); a mont32 butterfly 15 operations
-counted from csrc/ntt_mont32.cu; bigmont_pow the squarings and products
+product and its additions (fp2_ops); bigmont_pow the squarings and products
 of its windowed chain (pow_chain); the batch inversion's kernels the
 products, squarings and additions of their schedule (inv_counts).
 Any failed check raises, so the run exits non-zero and prints no last line.
@@ -171,11 +176,11 @@ import numpy as np
 # H100 SXM device memory rate (NVIDIA data sheet); the 32-bit integer rate
 # is read from the card (int32_rate)
 HBM_BYTES_PER_S = 3.35e12
-# 32-bit integer operations counted per radix-2 butterfly (one 64x64 ->
-# 128-bit product as four 32x32 products, its reduction, one add, one sub)
-# and per extra field multiply; a floor, not a count of issued instructions
-OPS_PER_BUTTERFLY = 20
+# 32-bit integer operations counted per Goldilocks product (one 64x64 ->
+# 128-bit product as four 32x32 products and its reduction) and per
+# butterfly's add and sub; a floor, not a count of issued instructions
 OPS_PER_MUL = 12
+OPS_ADD_SUB = 8
 WORD = 8
 
 FIELD = "goldilocks"
@@ -946,7 +951,9 @@ def msm_phases(dev, card, rate):
 
 WIDE_FIELD, WIDE_LG = "bls12_381_fr", 26     # bench.py:bench_ntt_wide
 WIDE_LDE_LG, WIDE_BLOWUP = 24, 2
-WIDE_KERNEL_FIELDS = ("test_bm64_fr", "bn254_fr", "bls12_381_fr")
+#: n32 = 2 (one carry chain) and 8 (the split chains: p < 2^255)
+WIDE_KERNEL_FIELDS = ("test_bm64_fr", "bn254_fr", "bls12_381_fr",
+                      "bls12_377_fr", "pallas")
 WIDE_ROW_LGS = (1, 6, 11)        # phase 10's row lengths,
 WIDE_COL_LGS = (1, 8, 11)        # column lengths
 WIDE_COL_COUNTS = (8, 1024)      # and column counts
@@ -971,10 +978,14 @@ def wide_words(field, lg, rng, dev):
     return get_field_ops(field).from_wire_np(w, dev)
 
 
-def butterfly_ops(n32):
-    """32-bit integer operations of one wide radix-2 butterfly: one
-    Montgomery product and a modular add and sub (2 n32 each)."""
-    return prod_ops(n32) + 4 * n32
+def transform_ops(lg, count, prod, add_sub):
+    """Integer operations of `count` radix-2 transforms of length
+    n = 2^lg: `add_sub` (an add and a sub) for each of the (n/2) lg
+    butterflies and `prod` (a product) for each whose twiddle is not
+    w^0 = 1, which is all but n - 1 of them."""
+    n = 1 << lg
+    return count * ((n // 2) * lg * add_sub
+                    + ((n // 2) * lg - (n - 1)) * prod)
 
 
 def eval_at(F, x, z, dev):
@@ -1025,10 +1036,18 @@ def wide_phases(dev, card, rate):
     rng = np.random.default_rng(11)
 
     def rand(field, *shape):
-        return rand_canon(get_field_ops(field), int(np.prod(shape)), rng,
-                          dev).reshape((-1,) + shape)
+        """rand_canon's words (0, 1, p - 1, R mod p first), with 0, 1,
+        p - 1 and p - 2 in the last four elements too."""
+        from sppark_tpu_torch.ff.kernels import int_words
+        F = get_field_ops(field)
+        n = int(np.prod(shape))
+        w = rand_canon(F, n, rng, dev)
+        for k, v in enumerate((0, 1, F.p - 1, F.p - 2)[:n]):
+            w[:, n - 1 - k] = torch.tensor(
+                int_words(v, F.n32), dtype=torch.int64).to(w)
+        return w.reshape((-1,) + shape)
 
-    # -- 10. kernels vs plain: every option, three fields ----------------------
+    # -- 10. kernels vs plain: every option, five fields, edge words ----------
     for field in WIDE_KERNEL_FIELDS:
         pm = get_parameters(field, dev)
         for lg in WIDE_ROW_LGS:
@@ -1225,14 +1244,14 @@ def wide_phases(dev, card, rate):
     # -- 13. times -----------------------------------------------------------------
     t_ntt = median_ms(lambda: ntt.base_dev(WIDE_FIELD, x, WIDE_LG), reps=5)
     bfly = (n // 2) * WIDE_LG
-    B, M2 = butterfly_ops(n32), 2 * prod_ops(n32)
+    P, AS, M2 = prod_ops(n32), 4 * n32, 2 * prod_ops(n32)
     ntt_bound, ntt_by = bound(
-        2 * 4 * n32 * n, bfly * B + 2 * n * M2, rate)
+        2 * 4 * n32 * n, transform_ops(WIDE_LG, 1, P, AS), rate)
     print(f"time NTT {WIDE_FIELD} 2^{WIDE_LG} forward: {t_ntt:.4f} ms "
           f"(median of 5, CUDA events), {bfly / (t_ntt * 1e-3):.4e} "
           f"butterflies/s, bound {ntt_bound:.4f} ms by {ntt_by} "
-          f"(butterflies and two mid passes), {ntt_bound / t_ntt:.3f} of "
-          f"bound  [{card}]", flush=True)
+          f"(one radix-2 transform, no products by 1), "
+          f"{ntt_bound / t_ntt:.3f} of bound  [{card}]", flush=True)
     t_lde = median_ms(lambda: ntt.lde_dev(WIDE_FIELD, x24, lg, WIDE_BLOWUP),
                       reps=5)
     bfly_lde = (1 << (lg - 1)) * lg + (1 << (lg_ext - 1)) * lg_ext
@@ -1270,7 +1289,8 @@ def wide_phases(dev, card, rate):
         ("bigmont_ntt_cols", tuple(a.shape),
          lambda: K.wide_cols(WIDE_FIELD, a, tw1, lg1),
          lambda: K.wide_cols_plain(WIDE_FIELD, cols_slice, tw1, lg1),
-         word * (2 * n + tw1.shape[-1]), (n // 2) * lg1 * B),
+         word * (2 * n + tw1.shape[-1]),
+         transform_ops(lg1, n >> lg1, P, AS)),
         ("bigmont_ntt_mid", tuple(c1.shape),
          lambda: K.wide_mid(WIDE_FIELD, c1, A1, B1),
          lambda: K.wide_mid_plain(WIDE_FIELD, mid_slice, a_slice, B1),
@@ -1279,7 +1299,8 @@ def wide_phases(dev, card, rate):
          lambda: K.wide_rows(WIDE_FIELD, m2, tw22, lg22, out_t=True),
          lambda: K.wide_rows_plain(WIDE_FIELD, rows_slice, tw22, lg22,
                                    out_t=True),
-         word * (2 * n + tw22.shape[-1]), (n // 2) * lg22 * B),
+         word * (2 * n + tw22.shape[-1]),
+         transform_ops(lg22, n >> lg22, P, AS)),
     ]
     timing = {}
     for name, shape, kfn, pfn, nbytes, ops in cases:
@@ -2088,13 +2109,12 @@ NARROW_COL_LGS = (1, 6, 11)         # column lengths
 NARROW_COL_COUNTS = (8, 8192)       # and column counts
 NARROW_ORDER_LGS = (10, 16)         # the 16 configurations: one pass, four-step
 NARROW_ORACLE_LGS = (1, 12, 14)     # the big-int oracle
-# 32-bit integer operations counted from csrc/ntt_mont32.cu: a butterfly is
-# a Montgomery product (the low and high products of a and b, the low
-# product lo * M0, the high product of m and p, the carry test, a three-way
-# add, a subtract, a min: 9) and an add and a sub (three each); an extra
-# product is the product alone
-OPS_PER_BUTTERFLY_MONT32 = 15
+# 32-bit integer operations counted from csrc/ntt_mont32.cu: a Montgomery
+# product (the low and high products of a and b, the low product lo * M0,
+# the high product of m and p, the carry test, a three-way add, a subtract,
+# a min: 9) and a butterfly's add and sub (three each)
 OPS_PER_MUL_MONT32 = 9
+OPS_ADD_SUB_MONT32 = 6
 WORD32 = 4
 
 
@@ -2461,12 +2481,14 @@ def narrow_phases(dev, card, rate):
          lambda: K.mont32_cols(NARROW_FIELD, xm, tw1, lg1, mid),
          lambda: K.mont32_cols_plain(NARROW_FIELD, xm, tw1, lg1, mid),
          WORD32 * (3 * n + tw1.numel()),
-         OPS_PER_BUTTERFLY_MONT32 * (n // 2) * lg1 + OPS_PER_MUL_MONT32 * n),
+         transform_ops(lg1, n >> lg1, OPS_PER_MUL_MONT32,
+                       OPS_ADD_SUB_MONT32) + OPS_PER_MUL_MONT32 * n),
         ("mont32_ntt_rows", tuple(xm.shape),
          lambda: K.mont32_rows(NARROW_FIELD, xm, tw2, lg2, out_t=True),
          lambda: K.mont32_rows_plain(NARROW_FIELD, xm, tw2, lg2, out_t=True),
          WORD32 * (2 * n + tw2.numel()),
-         OPS_PER_BUTTERFLY_MONT32 * (n // 2) * lg2),
+         transform_ops(lg2, n >> lg2, OPS_PER_MUL_MONT32,
+                       OPS_ADD_SUB_MONT32)),
     ]
     timing = {}
     for name, shape, kfn, pfn, nbytes, ops in cases:
@@ -2737,13 +2759,15 @@ def main():
                               reps=3)
     cols_bound, cols_by = bound(
         WORD * (3 * n + tw1.numel()),
-        OPS_PER_BUTTERFLY * (n // 2) * lg1 + OPS_PER_MUL * n, rate)
+        transform_ops(lg1, n >> lg1, OPS_PER_MUL, OPS_ADD_SUB)
+        + OPS_PER_MUL * n, rate)
     rows_ms = median_ms(lambda: K.ntt_rows(xm, tw2, lg2, out_t=True),
                         reps=20)
     rows_plain_ms = median_ms(
         lambda: K.ntt_rows_plain(xm, tw2, lg2, out_t=True), reps=3)
-    rows_bound, rows_by = bound(WORD * (2 * n + tw2.numel()),
-                                OPS_PER_BUTTERFLY * (n // 2) * lg2, rate)
+    rows_bound, rows_by = bound(
+        WORD * (2 * n + tw2.numel()),
+        transform_ops(lg2, n >> lg2, OPS_PER_MUL, OPS_ADD_SUB), rate)
     for name, ms, pms, b, by in (
             ("gl64_ntt_cols", cols_ms, cols_plain_ms, cols_bound, cols_by),
             ("gl64_ntt_rows", rows_ms, rows_plain_ms, rows_bound, rows_by)):

@@ -28,12 +28,6 @@
 
 #include "ec_kernel.cuh"
 
-// mont::FpCC's products at n32 >= 4 need a spare bit: p < 2^(32 n32 - 1)
-static bool spare_bit(int n32, const void* consts) {
-    return n32 < 4 ||
-           static_cast<const uint32_t*>(consts)[n32 - 1] >> 31 == 0;
-}
-
 // views: the host array [pointer, sw, sl, index, rows] per input
 // coordinate, in order (X, Y, ZZ, ZZZ, ax, ay) for madd, (X1 .. ZZZ1, X2 ..
 // ZZZ2) for add, (X, Y, ZZ, ZZZ) for dbl; index 0, or for the madd's ax and
@@ -41,14 +35,16 @@ static bool spare_bit(int n32, const void* consts) {
 // consts: [p, one, a4, m0, nr] (ff/kernels.py:field_consts).
 extern "C" int ec_xyzz_madd(int n32, const void* views, void* out,
                             long long n, const void* consts, void* stream) {
-    if (!spare_bit(n32, consts)) return (int)cudaErrorInvalidValue;
+    if (!mont::spare_bit(n32, static_cast<const uint32_t*>(consts)))
+        return (int)cudaErrorInvalidValue;
     return ec::dispatch<mont::FpCC, ec::MADD>(n32, views, 6, out, n, consts,
                                              stream);
 }
 
 extern "C" int ec_xyzz_add(int n32, const void* views, void* out, long long n,
                            const void* consts, void* stream) {
-    if (!spare_bit(n32, consts)) return (int)cudaErrorInvalidValue;
+    if (!mont::spare_bit(n32, static_cast<const uint32_t*>(consts)))
+        return (int)cudaErrorInvalidValue;
     return ec::dispatch<mont::FpCC, ec::ADD>(n32, views, 8, out, n, consts,
                                              stream);
 }

@@ -232,6 +232,12 @@ struct FpCC {
     uint32_t w[N];
 };
 
+// A launch's check of the host constants [p, ...] (make_consts): the
+// products at n32 >= 4 need a spare bit, p < 2^(32 n32 - 1).
+inline bool spare_bit(int n32, const uint32_t* consts) {
+    return n32 < 4 || consts[n32 - 1] >> 31 == 0;
+}
+
 // The final conditional subtraction: t (N words, and `top`, the bit above
 // them) < 2p -> t mod p.  t - p is kept unless it borrowed past `top`.
 template <int N>

@@ -1,12 +1,16 @@
-"""Build variants of the point kernels and of the batch inversion, timed
-against the committed ones on one card and on the same data:
+"""Build variants of the point kernels, of the batch inversion and of the
+wide NTT's row and column passes, timed against the committed ones on one
+card and on the same data:
 
-    python3 -m sppark_tpu_torch.variants [part of a name]
+    python3 -m sppark_tpu_torch.variants [--parent FILE] [part of a name]
     python3 -m sppark_tpu_torch.variants --sass [source ...]
 
 (with an argument, only the variants whose name holds it, and the
-committed kernels they replace; with --sass, no timing: ptxas's registers
-and the SASS counts of the committed point kernels of the named sources,
+committed kernels they replace; with --parent, one more variant of
+csrc/ntt_wide.cu whose text is FILE, for instance the source at an earlier
+commit (`git show REV:sppark_tpu_torch/csrc/ntt_wide.cu > FILE`); with
+--sass, no timing: ptxas's registers and the SASS counts of the committed
+N = 12 point kernels and N = 8 wide NTT kernels of the named sources,
 default all, and of the probes below)
 
 Each variant is a scratch copy of csrc/ under build/variants/ (git-ignored)
@@ -20,23 +24,30 @@ element before the carry chains (`mont::Fp`, with no minimum of blocks),
 or a minimum of 1 or 2 blocks, or none, in place of the committed 3.
 For the batch inversion (csrc/batch_inv.cu): other blocks of T threads of
 C lanes, and in degree 2 the norm recomputed in the down kernel in place
-of the one the up kernel stores.  The point kernels' variants are built
-at n32 = 12 only.  The script prints ptxas's registers and spills of
-each, and each N = 12 point kernel's static SASS instructions by class
-(`cuobjdump -sass`: IMAD, IMAD.MOV, IADD3, other integer, branch, memory,
-other), then each one's time by CUDA events at the main paths' shapes on
-random canonical words: the G2 add at 147,456 lanes (the G2 slab's fold),
-every lane taking the fast leg; the G2 finish at level 1's 6,459,904
-lanes on point-major rows, every lane a chord; the G1 madd at 294,912
-lanes through a table of 589,825 rows and a random slot index, and the
-G1 add at 294,912 lanes, every lane on the fast leg; the batch
-inversion's three launches at the trees' level 1, 12,964,864 BLS12-381 Fp
-lanes and 6,459,904 Fp2 lanes.  Two rounds in opposite orders; each
+of the one the up kernel stores.  For the wide NTT passes
+(csrc/ntt_wide.cu): radix 4 or 16 in place of 8 (RADIX_LG stages a pass),
+radix 16 on 128 threads a block, and no minimum of blocks an SM or a
+minimum of 1 or 3 in place of the committed 2.  The point kernels'
+variants are built at n32 = 12 only.  The script prints ptxas's
+registers and spills of each, and the static SASS instructions by class
+of each N = 12 point kernel and N = 8 wide NTT kernel (`cuobjdump -sass`:
+IMAD, IMAD.MOV, IADD3, other integer, branch, memory, other), then each
+one's time by CUDA events at the main paths' shapes on random canonical
+words: the G2 add at 147,456 lanes (the G2 slab's fold), every lane
+taking the fast leg; the G2 finish at level 1's 6,459,904 lanes on
+point-major rows, every lane a chord; the G1 madd at 294,912 lanes
+through a table of 589,825 rows and a random slot index, and the G1 add
+at 294,912 lanes, every lane on the fast leg; the batch inversion's three
+launches at the trees' level 1, 12,964,864 BLS12-381 Fp lanes and
+6,459,904 Fp2 lanes; the wide NTT's column pass at (8, 256, 262144),
+lg 8, and its row pass at (8, 256, 256, 1024), lg 10, out_t (the
+BLS12-381 Fr NTT 2^26's shapes).  Two rounds in opposite orders; each
 output equals the committed kernel's word for word.  The probes are one
-field op of each G1 element (mul, sqr, add, sub, and a copy for the loads
-and stores around it) in a kernel of its own, whose SASS counts give the
-instructions of one op.  The committed kernels' own registers are printed
-by chip_smoke.py.  Nothing of the port calls this module.
+field op of each base-field element at N = 8 and 12 (mul, sqr, add, sub,
+and a copy for the loads and stores around it) in a kernel of its own,
+whose SASS counts give the instructions of one op.  The committed
+kernels' own registers are printed by chip_smoke.py.  Nothing of the port
+calls this module.
 """
 
 from __future__ import annotations
@@ -54,7 +65,9 @@ import torch
 from . import _build
 from .ec import kernels as EK
 from .ff import kernels as FK
-from .params import get_curve
+from .ntt import kernels as NK
+from .ntt.parameters import get_parameters
+from .params import get_curve, get_field
 
 ADD_LANES, FINISH_LANES, MADD_LANES = 147_456, 6_459_904, 294_912
 INV_LANES = 12_964_864          # the G1 tree's level 1; G2's: FINISH_LANES
@@ -66,6 +79,14 @@ MIN3 = "__launch_bounds__(THREADS, 3)"
 #: the point kernels' sources (csrc/<source>.cu)
 POINT_SOURCES = ("ec_xyzz", "ec_pair", "ec_fp2_madd", "ec_fp2_add",
                  "ec_fp2_dbl", "ec_fp2_pair")
+#: the sources whose kernels --sass and the variants' builds count
+SASS_SOURCES = POINT_SOURCES + ("ntt_wide",)
+#: the wide NTT's field and its passes' shapes on the NTT 2^26's path
+WIDE_FIELD = "bls12_381_fr"
+WIDE_COLS = ((8, 256, 262144), 8)
+WIDE_ROWS = ((8, 256, 256, 1024), 10)
+#: csrc/ntt_wide.cu's row and column kernels' bounds
+WIDE_BOUNDS = "__launch_bounds__(THREADS, 2)"
 
 
 def _blocks(k):
@@ -96,6 +117,18 @@ def variants():
                  (128, 16), (128, 32), (256, 8), (256, 16)):
         out[f"batch_inv T {t} C {c}"] = ("batch_inv", [
             (old, new.format(v)) for (old, new), v in zip(block, (t, c))])
+    for k in (2, 4):
+        out[f"ntt_wide radix {1 << k}"] = ("ntt_wide", [
+            ("constexpr int RADIX_LG = 3;",
+             f"constexpr int RADIX_LG = {k};")])
+    out["ntt_wide radix 16, 128 threads"] = ("ntt_wide", [
+        ("constexpr int RADIX_LG = 3;", "constexpr int RADIX_LG = 4;"),
+        ("constexpr int THREADS = 256;", "constexpr int THREADS = 128;")])
+    out["ntt_wide, no minimum"] = ("ntt_wide", [
+        (WIDE_BOUNDS, "__launch_bounds__(THREADS)")])
+    for k in (1, 3):
+        out[f"ntt_wide, {k} block{'s' * (k > 1)}"] = ("ntt_wide", [
+            (WIDE_BOUNDS, f"__launch_bounds__(THREADS, {k})")])
     out["batch_inv norm recomputed"] = ("batch_inv", [
         ("            store<N>(dn, n, i, d);\n", ""),
         ("load<N>(DEG == 1 ? x : dn, n, i)",
@@ -105,8 +138,9 @@ def variants():
 
 
 def _make(name, source, subs):
-    """Write the variant's sources, N = 12 only; returns (library, nvcc
-    command)."""
+    """Write the variant's sources, the point kernels at N = 12 only;
+    returns (library, nvcc command).  A substitution (None, text) replaces
+    the whole source."""
     d = _build.BUILD / "variants" / re.sub(r"\W+", "_", name)
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -117,6 +151,9 @@ def _make(name, source, subs):
         r"\n\s*case (2|8): launch<F<\1>, OP>\([^)]*\); break;", "",
         text["ec_kernel.cuh"])
     for old, new in subs:
+        if old is None:
+            text[f"{source}.cu"] = new
+            continue
         f = next((f for f, t in text.items() if old in t), None)
         if f is None:
             raise ValueError(f"{name}: {old!r} not found")
@@ -129,15 +166,18 @@ def _make(name, source, subs):
 
 
 def _registers(log):
-    """ptxas's lines for the N = 12 kernels of a build log."""
+    """ptxas's lines for the N = 12 point and inversion kernels and the
+    N = 8 wide NTT kernels of a build log."""
     out, entry = [], None
     for line in log.splitlines():
         m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi12EEELi"
                       r"(\d)E", line)
         k = re.search(r"(inv_up|inv_down)ILi12ELi(\d)E", line)
+        w = re.search(r"(rows|cols|mid)_kernelILi8E", line)
         if "Compiling entry function" in line:
             entry = (f"{m.group(1)}<12>,{OPS[int(m.group(2))]}" if m else
-                     f"{k.group(1)}<12,{k.group(2)}>" if k else None)
+                     f"{k.group(1)}<12,{k.group(2)}>" if k else
+                     f"{w.group(1)}_kernel<8>" if w else None)
         elif entry and ("registers" in line or "spill" in line):
             out.append(f"{entry}: {line.strip()}")
     return out
@@ -164,18 +204,22 @@ def _sass_class(op):
 
 
 def _sass_name(mangled):
-    """A short name for a point kernel or a probe at N = 12, else None."""
+    """A short name for a point kernel or a probe at N = 12 or a wide NTT
+    kernel at N = 8, else None."""
     m = re.search(r"ec_kernelIN4mont\d+(\w+?)ILi12EEELi(\d)E", mangled)
     if m:
         return f"{m.group(1)}<12>,{OPS[int(m.group(2))]}"
+    m = re.search(r"(rows|cols|mid)_kernelILi8E", mangled)
+    if m:
+        return f"{m.group(1)}_kernel<8>"
     m = re.fullmatch(r"probe_(\w+)", mangled)
     return m.group(1) if m else None
 
 
 def sass_counts(lib):
     """{kernel: {class: static instruction count}} from `cuobjdump -sass`
-    of a built library: the N = 12 point kernels and the probes, NOPs left
-    out."""
+    of a built library: the N = 12 point kernels, the N = 8 wide NTT
+    kernels and the probes, NOPs left out."""
     tool = shutil.which("cuobjdump") or str(
         __import__("pathlib").Path(_build.nvcc()).parent / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -201,15 +245,15 @@ def _sass_line(what, counts):
         f"{k} {v}" for k, v in counts.items())
 
 
-#: one field op of each element at N = 12 alone, between 2 N word loads and
-#: N stores: the copy's count is the loads' and stores' own
+#: one field op of each element alone, between 2 N word loads and N stores:
+#: the copy's count is the loads' and stores' own
 PROBE_OPS = {"copy": "a", "mul": "mul(a, b, c)", "sqr": "sqr(a, c)",
              "add": "add(a, b, c)", "sub": "sub(a, b, c)"}
 
 
 def _probe():
-    """Build the probes of every G1 element the headers define; returns
-    the library."""
+    """Build the probes of every base-field element the headers define, at
+    N = 8 and 12; returns the library."""
     d = _build.BUILD / "variants" / "probe"
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -217,22 +261,23 @@ def _probe():
     elems = [e for e in ("Fp", "FpCC") if any(
         f"struct {e} {{" in h.read_text() for h in heads)]
     text = "".join(f'#include "{h.name}"\n' for h in heads) + """
-#define PROBE(E, NAME, EXPR)                                               \\
+#define PROBE(E, N, NAME, EXPR)                                            \\
     extern "C" __global__ void probe_##NAME(                               \\
-        const uint32_t* x, uint32_t* y, const mont::Consts<12> c) {        \\
+        const uint32_t* x, uint32_t* y, const mont::Consts<N> c) {         \\
         using namespace mont;                                              \\
-        E a, b;                                                            \\
-        for (int w = 0; w < 12; w++) {                                     \\
+        E<N> a, b;                                                         \\
+        for (int w = 0; w < N; w++) {                                      \\
             a.w[w] = x[w * 128 + threadIdx.x];                             \\
-            b.w[w] = x[(12 + w) * 128 + threadIdx.x];                      \\
+            b.w[w] = x[(N + w) * 128 + threadIdx.x];                       \\
         }                                                                  \\
-        E r = EXPR;                                                        \\
-        for (int w = 0; w < 12; w++) y[w * 128 + threadIdx.x] = r.w[w];    \\
+        E<N> r = EXPR;                                                     \\
+        for (int w = 0; w < N; w++) y[w * 128 + threadIdx.x] = r.w[w];     \\
     }
 """
     for e in elems:
-        for op, expr in PROBE_OPS.items():
-            text += f"PROBE(mont::{e}<12>, {e}_{op}, {expr})\n"
+        for n in (8, 12):
+            for op, expr in PROBE_OPS.items():
+                text += f"PROBE(mont::{e}, {n}, {e}{n}_{op}, {expr})\n"
     (d / "probe.cu").write_text(text)
     lib = d / "libprobe.so"
     proc = subprocess.run([_build.nvcc(), *_build.FLAGS, "-I",
@@ -246,7 +291,8 @@ def _probe():
 
 def print_sass(sources, card):
     """ptxas's registers and the SASS counts of the committed N = 12 point
-    kernels of `sources`, then of the probes."""
+    kernels and N = 8 wide NTT kernels of `sources`, then of the
+    probes."""
     info = _build.build(sources)
     for source in sources:
         for line in _registers(info.get(source, {}).get("log", "")):
@@ -264,6 +310,8 @@ def _load(path, source):
             for fn, s in EK.SOURCES.items() if s == source}
     if source == "batch_inv":
         sigs = FK._INV_SIGNATURES
+    if source == "ntt_wide":
+        sigs = NK._WIDE_SIGNATURES
     for fn, argtypes in sigs.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -306,12 +354,17 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    if sys.argv[1:2] == ["--sass"]:
-        print_sass(sys.argv[2:] or list(POINT_SOURCES), card)
+    args = sys.argv[1:]
+    if args[:1] == ["--sass"]:
+        print_sass(args[1:] or list(SASS_SOURCES), card)
         return 0
+    every = variants()
+    if args[:1] == ["--parent"]:
+        every["ntt_wide parent"] = ("ntt_wide", [(None, open(args[1]).read())])
+        args = args[2:]
     t0 = time.perf_counter()
-    chosen = {name: v for name, v in variants().items()
-              if (sys.argv[1:] or [""])[0] in name
+    chosen = {name: v for name, v in every.items()
+              if (args or [""])[0] in name
               and f"T {FK.INV_THREADS} C {FK.INV_CHUNK}" not in name}
     _build.build({v[0] for v in chosen.values()} | {"bigmont"})
     todo = {name: _make(name, *v) for name, v in chosen.items()}
@@ -326,11 +379,11 @@ def main():
         libs[name] = _load(todo[name][0], chosen[name][0])
         for line in _registers(log):
             print(f"ptxas {name}: {line}")
-        if chosen[name][0] in POINT_SOURCES:
+        if chosen[name][0] in SASS_SOURCES:
             for k, c in sass_counts(todo[name][0]).items():
                 print(_sass_line(f"{name} {k}", c) + f"  [{card}]")
     for source in sorted({v[0] for v in chosen.values()}
-                         & set(POINT_SOURCES)):
+                         & set(SASS_SOURCES)):
         for k, c in sass_counts(_build._target(source)).items():
             print(_sass_line(f"{source} committed {k}", c) + f"  [{card}]")
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
@@ -360,6 +413,14 @@ def main():
     d1 = _words(p, n32, (INV_LANES,), rng, dev)
     d2 = _fp2(p, n32, (FINISH_LANES,), rng, dev)
     nr = cp.fp2.nr_small
+    sources = {v[0] for v in chosen.values()}
+    if "ntt_wide" in sources:
+        pw = get_parameters(WIDE_FIELD, dev)
+        fr = get_field(WIDE_FIELD)
+        (cshape, clg), (rshape, rlg) = WIDE_COLS, WIDE_ROWS
+        xc = _words(fr.modulus, fr.n_ref_limbs, cshape[1:], rng, dev)
+        xr = _words(fr.modulus, fr.n_ref_limbs, rshape[1:], rng, dev)
+        twc, twr = pw.power_table(clg, True), pw.power_table(rlg, False)
     calls = {"ec_fp2_add": lambda: EK.xyzz_add("bls12_381_g2", pt, qt),
              "ec_fp2_pair": lambda: EK.affine_pair_finish(
                  "bls12_381_g2", l, r, inv, flags),
@@ -369,15 +430,19 @@ def main():
                                                 g1[4:]),
              "batch_inv": lambda: [FK.mont_batch_inv(d1, cp.field)],
              "batch_inv_fp2": lambda: [FK.mont_batch_inv(d2, cp.field, 2,
-                                                         nr)]}
+                                                         nr)],
+             "ntt_wide": lambda: [NK.wide_cols(WIDE_FIELD, xc, twc, clg)],
+             "ntt_wide_rows": lambda: [NK.wide_rows(WIDE_FIELD, xr, twr, rlg,
+                                                    out_t=True)]}
 
-    # the second call of a source: batch_inv's in degree 2, ec_xyzz's add
-    twins = {"batch_inv_fp2": "batch_inv", "ec_xyzz_add": "ec_xyzz"}
+    # the second call of a source: batch_inv's in degree 2, ec_xyzz's add,
+    # ntt_wide's row pass
+    twins = {"batch_inv_fp2": "batch_inv", "ec_xyzz_add": "ec_xyzz",
+             "ntt_wide_rows": "ntt_wide"}
 
     def source_of(call):
         return twins.get(call, call)
 
-    sources = {v[0] for v in chosen.values()}
     calls = {k: f for k, f in calls.items() if source_of(k) in sources}
     want = {s: [c.clone() for c in fn()] for s, fn in calls.items()}
     torch.cuda.synchronize()
@@ -411,13 +476,16 @@ def main():
             finally:
                 _build._libs[source] = committed
                 FK.INV_THREADS, FK.INV_CHUNK = block
-    lanes_of = {"ec_fp2_add": ADD_LANES, "ec_fp2_pair": FINISH_LANES,
+    shape_of = {"ec_fp2_add": ADD_LANES, "ec_fp2_pair": FINISH_LANES,
                 "ec_xyzz": MADD_LANES, "ec_xyzz_add": MADD_LANES,
                 "batch_inv": INV_LANES,
                 "batch_inv_fp2": FINISH_LANES}
+    shape_of = {k: f"{v} lanes" for k, v in shape_of.items()}
+    shape_of["ntt_wide"] = f"{WIDE_COLS[0]}, lg {WIDE_COLS[1]}"
+    shape_of["ntt_wide_rows"] = f"{WIDE_ROWS[0]}, lg {WIDE_ROWS[1]}, out_t"
     for name in runs:
-        lanes = lanes_of[re.match(r"\w+", name).group()]
-        print(f"time {name} at {lanes} lanes: " + " / ".join(
+        what = shape_of[re.match(r"\w+", name).group()]
+        print(f"time {name} at {what}: " + " / ".join(
             f"{t:.4f}" for t in times[name]) + f" ms (rounds 1 / 2)  "
             f"[{card}]", flush=True)
     return 0

@@ -162,16 +162,29 @@ def test_baby_bear_facade_on_card(dev):
 
 # -- the wide-field NTT kernels ---------------------------------------------------
 
-WIDE_FIELDS = ["test_bm64_fr", "bn254_fr", "bls12_381_fr"]
+#: n32 = 2 (test_bm64_fr: one carry chain, no spare bit) and 8 (BN254,
+#: BLS12-381, BLS12-377, Pallas: the split chains, p < 2^255)
+WIDE_FIELDS = ["test_bm64_fr", "bn254_fr", "bls12_381_fr", "bls12_377_fr",
+               "pallas"]
 
 
 def _wide_words(field, rng, dev, *shape):
-    """(n32, *shape) random canonical Montgomery words."""
+    """(n32, *shape) random canonical Montgomery words, with the words 0,
+    1, p - 1 and p - 2 planted at elements 0, 1, 2, 3 and at the last four
+    (every word near its top at the end: the carry chains' edge)."""
+    from sppark_tpu_torch.ff.kernels import int_words
+
     fp = params.get_field(field)
     n32 = fp.n_ref_limbs
     w = rng.integers(0, 1 << 32, size=(n32,) + shape,
                      dtype=np.uint64).astype(np.uint32)
     w[-1] %= np.uint32(fp.modulus >> (32 * (n32 - 1)))
+    flat = w.reshape(n32, -1)
+    edges = [int_words(v, n32) for v in (0, 1, fp.modulus - 1,
+                                         fp.modulus - 2)]
+    for k, e in enumerate(edges):
+        flat[:, k % flat.shape[1]] = e
+        flat[:, -1 - k] = e
     return torch.from_numpy(w.view(np.int32)).to(dev)
 
 
@@ -211,6 +224,35 @@ def test_wide_cols_and_mid_kernels_vs_plain(dev, field):
             got = K.wide_mid(field, xx, a, b)
             torch.cuda.synchronize()
             assert torch.equal(got, K.wide_mid_plain(field, xx, a, b))
+
+
+def test_wide_launch_refuses_p_without_spare_bit(dev):
+    """The row and column passes' carry-chain element needs p < 2^255 at
+    n32 = 8: constants of p = 2^256 - 189 (prime, top bit set) are refused
+    at the C entry point with cudaErrorInvalidValue, where BN254's launch."""
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.kernels import int_words
+
+    p = (1 << 256) - 189
+    bad = np.asarray(int_words(p, 8) + int_words((1 << 256) % p, 8)
+                     + [0] * 8 + [-pow(p, -1, 1 << 32) % (1 << 32), 0],
+                     dtype=np.uint32)
+    good = FK.field_consts(params.get_field("bn254_fr"))
+    rng = np.random.default_rng(5)
+    lg = 4
+    tw = get_parameters("bn254_fr", dev).power_table(lg, False)
+    x = _wide_words("bn254_fr", rng, dev, 4, 1 << lg)
+    out = torch.empty_like(x)
+    lib = K._wide_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for consts, rc in ((bad, 1), (good, 0)):
+        assert lib.bigmont_ntt_rows(8, x.data_ptr(), tw.data_ptr(), None,
+                                    out.data_ptr(), 1, 4, lg, 1, 0, 0,
+                                    consts.ctypes.data, stream) == rc
+        assert lib.bigmont_ntt_cols(8, x.data_ptr(), tw.data_ptr(),
+                                    out.data_ptr(), 1, lg, 4,
+                                    consts.ctypes.data, stream) == rc
+    torch.cuda.synchronize()
 
 
 def test_wide_facade_on_card(dev):
