@@ -86,10 +86,11 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      test_bm64, Pasta, BLS12-381 and the four G2 curves, exactly: planted
      infinities, doubling, cancellation and a y == 0 doubling, a warp with
      no doubling lane, one with one, one of all doubling lanes, on
-     limb-major operands and on the even/odd views a tree level reads;
-     for the lane-pair ec_fp2_pair_finish also warps of 16 chords with
-     exactly one tangent or copy lane and 1, 17 and 65 lanes, on each
-     view;
+     limb-major operands and on the operands a tree level reads (a point
+     table through an index pair, level 1's; the even/odd lanes of a
+     limb-major level); for the lane-pair fp2 prep and finish also warps
+     of 16 chords with exactly one tangent, cancelling, copy or zero lane
+     and 1, 17 and 65 lanes, on each view;
  17b. holds the batch inversion's kernels (bigmont_inv_up, bigmont_inv_down)
      against their plain versions on the same inputs, in degree 1 on
      test_bm64, Pasta and BLS12-381 Fp and in degree 2 on the BLS12-381,
@@ -108,10 +109,12 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      each tree launched bigmont_inv_up, bigmont_pow and bigmont_inv_down
      once per level and once for to_affine;
  19. times both tree MSMs, profiles each invoke (peak memory, busy share,
-     phases, kernels; per invoke the launches and device ms of bigmont_ew,
-     the batch inversion's kernels and the elementwise kernels, and
-     msm.tree_levels' device and host ms) and times each pair kernel alone
-     at its level-1 shape; the batch inversion at level 1 on the main
+     phases, kernels, the kernels of its gather: the level-0 index, no
+     index_select over the point table; per invoke the launches and device
+     ms of bigmont_ew, the batch inversion's kernels and the elementwise
+     kernels, and msm.tree_levels' device and host ms) and times each pair
+     kernel alone at its level-1 shape, through the point table and window
+     group 0's level-0 index; the batch inversion at level 1 on the main
      path's denominators (each kernel alone, the plain versions on a 2^20
      lane slice held against the kernels there, the pipeline by events,
      and the pipeline and the product tree it replaced by the wall clock);
@@ -621,7 +624,7 @@ EC_OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
 
 def kernel_group(name):
     """A device event's name, the point and field kernels by their op."""
-    m = re.search(r"ec_kernel<mont::(FpCC|Fp2Pair|Fp2|Fp)<\d+>, ?(\d)>",
+    m = re.search(r"ec_kernel<mont::(FpCC|Fp2Pair|Fp2|Fp)<\d+>, ?(\d)[,>]",
                   name)
     if m:
         return ("ec_" if m.group(1) in ("Fp", "FpCC") else "ec_fp2_") + \
@@ -796,17 +799,14 @@ def msm_times(ctx, wd, curve, lg, card):
           + ", ".join(f"{k} {ms:.4f} ({c})" for k, (ms, c) in sorted(
               by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
           + f"  [{card}]", flush=True)
-    if not isinstance(ctx.stages, MSMTreeStages):
-        # the slab's gather is the slot index: no index_select over the
-        # point table, whose rows the madd reads through the index
-        gather = sorted(launched["msm.gather"])
-        print(f"MSM {curve} 2^{lg} kernels in msm.gather: {gather}",
-              flush=True)
-        if busy > 0:
-            check(bool(gather) and not any("indexSelect" in k
-                                           for k in gather),
-                  f"MSM {curve} 2^{lg}: msm.gather launched no "
-                  f"index_select")
+    # the slab's and the tree's gather build an index: no index_select over
+    # the point table, whose rows the madd and level 1's pair kernels read
+    # through the index
+    gather = sorted(launched["msm.gather"])
+    print(f"MSM {curve} 2^{lg} kernels in msm.gather: {gather}", flush=True)
+    if busy > 0:
+        check(bool(gather) and not any("indexSelect" in k for k in gather),
+              f"MSM {curve} 2^{lg}: msm.gather launched no index_select")
     return t_msm, peak, resident, busy, t_prof, phases, by_kernel
 
 
@@ -1375,7 +1375,7 @@ def pair_warps():
 
 
 def one_special_warps(specials):
-    """Lane selections for the lane-pair add and pair finish: for each
+    """Lane selections for the lane-pair add and pair kernels: for each
     (what, lane), a warp of 16 lanes, the generic lanes 0..15 with that
     one lane in slot 5; then 1, 17 and 65 lanes."""
     out = [(f"a warp with {what}", [*range(5), lane, *range(6, 16)])
@@ -1589,29 +1589,34 @@ def pair_cases(curve, n, dev, seed):
 
 
 def pair_views(l, r):
-    """The same pairs as a tree level reads them: the even and odd rows of
-    point-major rows (level 0), and the even and odd lanes of limb-major
-    coordinates (a later level)."""
+    """The same pairs as a tree level reads them: from a point table (l's
+    lanes, r's lanes, the zero row) through an index pair (level 1 and the
+    level-0 index), and the even and odd lanes of limb-major coordinates
+    (a later level).  Returns [(what, l view, r view, idx or None)]."""
     import torch
     W, n = l[0].shape
-    rows = torch.stack([torch.cat(l).T, torch.cat(r).T], 1).reshape(2 * n,
-                                                                  2 * W)
+    rows = torch.cat([torch.cat(l).T, torch.cat(r).T, torch.zeros(
+        (1, 2 * W), dtype=torch.int32, device=l[0].device)]).contiguous()
+    table = (rows[:, :W].T, rows[:, W:].T)
+    i = torch.arange(n, dtype=torch.int32, device=l[0].device)
     X = torch.stack([l[0], r[0]], -1).reshape(W, 2 * n)
     Y = torch.stack([l[1], r[1]], -1).reshape(W, 2 * n)
-    return [("point-major rows", (rows[0::2, :W].T, rows[0::2, W:].T),
-             (rows[1::2, :W].T, rows[1::2, W:].T)),
+    return [("table and index", table, table, (i, i + n)),
             ("limb-major lanes", (X[:, 0::2], Y[:, 0::2]),
-             (X[:, 1::2], Y[:, 1::2]))]
+             (X[:, 1::2], Y[:, 1::2]), None)]
 
 
 def pair_level1(curve, ctx, wd, M, S, A):
     """The two pair kernels at their level-1 shape on the main path's data:
-    window group 0's level 0 (tree.level0), its even and odd rows.  M, S,
-    A: the 32-bit operations of one product, squaring and addition of the
-    coordinate field.  prep counts 3 additions per lane; finish 2 M + S +
-    5 A per chord lane and 2 M + 2 S + 6 A per tangent lane, nothing on the
-    lanes that only copy or zero.  Returns (the level's denominators, the
-    cases for time_kernels)."""
+    window group 0's level-0 index (tree.level0_index), its even and odd
+    slots, into the point table.  M, S, A: the 32-bit operations of one
+    product, squaring and addition of the coordinate field.  prep counts 3
+    additions per lane; finish 2 M + S + 5 A per chord lane and 2 M + 2 S +
+    6 A per tangent lane, nothing on the lanes that only copy or zero; the
+    bytes count each table row the level reads once (the padding's zero
+    row, read by a third of the lanes, once) and the two index words a
+    lane.  Returns (the level's denominators, the cases for
+    time_kernels)."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.msm import tree
@@ -1620,29 +1625,32 @@ def pair_level1(curve, ctx, wd, M, S, A):
     sched = st.schedule(wd)
     m0, _, wg = st.plan(sched[-1])
     g = slice(0, wg)
-    lvl = tree.level0(*(a[g] for a in sched[:5]), m0, ctx.rows)
+    idx = tree.level0_index(*(a[g] for a in sched[:5]), m0)
     del sched
-    W = lvl.shape[1] // 2
-    l = (lvl[0::2, :W].T, lvl[0::2, W:].T)
-    r = (lvl[1::2, :W].T, lvl[1::2, W:].T)
-    lanes = l[0].shape[1]
-    den, flags = EK.affine_pair_prep(curve, l, r)
+    ix = (idx[0], idx[1])
+    W = ctx.rows.shape[1] // 2
+    table = (ctx.rows[:, :W].T, ctx.rows[:, W:].T)
+    lanes = idx.shape[1]
+    rows = torch.unique(idx).numel()        # the table rows the level reads
+    den, flags = EK.affine_pair_prep(curve, table, table, ix)
     inv = tree.batch_inv_flat(st.ops.F, den)
     chord = int(((flags & EK.ACTIVE) != 0).sum()) - int(
         ((flags & EK.DBL) != 0).sum())
     tangent = int(((flags & EK.DBL) != 0).sum())
     print(f"{curve} tree level 1 of group 0: {lanes} lanes, {chord} chord, "
-          f"{tangent} tangent, {lanes - chord - tangent} copy or zero",
-          flush=True)
+          f"{tangent} tangent, {lanes - chord - tangent} copy or zero; "
+          f"{rows} distinct table rows read", flush=True)
     pre = EK.kernel_name("pair_", curve)
     return den, [
-        (pre + "prep", lanes, lambda: EK.affine_pair_prep(curve, l, r),
-         lambda: EK.affine_pair_prep_plain(curve, l, r),
-         (5 * 4 * W + 4) * lanes, 3 * A * lanes),
+        (pre + "prep", lanes,
+         lambda: EK.affine_pair_prep(curve, table, table, ix),
+         lambda: EK.affine_pair_prep_plain(curve, table, table, ix),
+         rows * 2 * 4 * W + (4 * W + 4 + 8) * lanes, 3 * A * lanes),
         (pre + "finish", lanes,
-         lambda: EK.affine_pair_finish(curve, l, r, inv, flags),
-         lambda: EK.affine_pair_finish_plain(curve, l, r, inv, flags),
-         (7 * 4 * W + 4) * lanes,
+         lambda: EK.affine_pair_finish(curve, table, table, inv, flags, ix),
+         lambda: EK.affine_pair_finish_plain(curve, table, table, inv, flags,
+                                             ix),
+         rows * 2 * 4 * W + (3 * 4 * W + 4 + 8) * lanes,
          chord * (2 * M + S + 5 * A) + tangent * (2 * M + 2 * S + 6 * A)),
     ]
 
@@ -1886,33 +1894,43 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
               f"{curve} pair cases: every flag word planted")
         inv = batch_inv_flat(get_curve_ops(curve, FK.PLAIN).F, den)
         want = EK.affine_pair_finish_plain(curve, l, r, inv, flags)
-        for what, lv, rv in [("limb-major", l, r)] + pair_views(l, r):
+        for what, lv, rv, ix in [("limb-major", l, r, None)] + pair_views(
+                l, r):
             for k, warp in ((slice(0, 32), "a warp with no doubling lane"),
                             (slice(32, 64), "a warp with one doubling "
                                             "lane and the specials"),
                             (slice(64, 96), "a warp of doubling lanes"),
                             (slice(0, 128), "all lanes")):
-                lk = tuple(c[:, k] for c in lv)
-                rk = tuple(c[:, k] for c in rv)
-                same(prep, EK.affine_pair_prep(curve, lk, rk),
+                if ix is None:
+                    lk = tuple(c[:, k] for c in lv)
+                    rk = tuple(c[:, k] for c in rv)
+                    ik = None
+                else:
+                    lk, rk, ik = lv, rv, (ix[0][k], ix[1][k])
+                same(prep, EK.affine_pair_prep(curve, lk, rk, ik),
                      (den[:, k], flags[k]), f"{curve} {what}, {warp}")
                 same(finish,
                      EK.affine_pair_finish(curve, lk, rk, inv[:, k],
-                                           flags[k]),
+                                           flags[k], ik),
                      tuple(c[:, k] for c in want), f"{curve} {what}, {warp}")
         if get_curve(curve).degree == 1:
             continue
-        # the fp2 finish runs a pair on a lane pair, 16 lanes a warp:
-        # chords with exactly one tangent or copy lane, on every view
+        # the fp2 prep and finish run a pair on a lane pair, 16 lanes a
+        # warp: chords with exactly one doubling, cancelling, copy or zero
+        # lane, on every view
         for warp, lanes in one_special_warps(
-                (("one tangent lane", 33), ("one USE_R lane", 35),
-                 ("one USE_L lane", 36))):
+                (("one tangent lane", 33), ("one cancelling lane", 34),
+                 ("one USE_R lane", 35), ("one USE_L lane", 36),
+                 ("one lane of two infinities", 37))):
             lw, rw = (tuple(c[:, lanes] for c in t) for t in (l, r))
             args = (inv[:, lanes], flags[lanes])
+            dk = EK.affine_pair_prep_plain(curve, lw, rw)
             wk = EK.affine_pair_finish_plain(curve, lw, rw, *args)
-            for what, lv, rv in [("limb-major", lw, rw)] + pair_views(lw,
-                                                                      rw):
-                same(finish, EK.affine_pair_finish(curve, lv, rv, *args),
+            for what, lv, rv, ix in [("limb-major", lw, rw, None)] + \
+                    pair_views(lw, rw):
+                same(prep, EK.affine_pair_prep(curve, lv, rv, ix), dk,
+                     f"{curve} {what}, {warp}")
+                same(finish, EK.affine_pair_finish(curve, lv, rv, *args, ix),
                      wk, f"{curve} {what}, {warp}")
     seconds["17 pair kernels vs plain"] = time.perf_counter() - t0
 

@@ -3,33 +3,38 @@
 // per lane pair of threads (Elem<E>::THREADS), the formulas of xyzz.cuh and
 // pair.cuh.  The G1 madd and add run on the carry-chain element
 // (mont::FpCC<N>, mont_cc.cuh), the G1 dbl and pair kernels on mont::Fp<N>.
-// The G2 madd, add and pair finish run on the lane pair (mont::Fp2Pair<N>:
-// thread 2i holds c0 of lane i, thread 2i + 1 holds c1); the G2 dbl and
-// pair prep keep one thread a lane (mont::Fp2<N>).
+// The G2 madd, add, pair prep and pair finish run on the lane pair
+// (mont::Fp2Pair<N>: thread 2i holds c0 of lane i, thread 2i + 1 holds
+// c1); the G2 dbl keeps one thread a lane (mont::Fp2<N>).
 //
 // Operands: each input coordinate is a (W, n) view, W = N words for Fp<N>
 // and 2 N for the fp2 elements (c0's words, then c1's), given by a pointer
 // and two strides in words, `sw` between words and `sl` between lanes, so
-// the kernels read limb-major tensors (sw = n, sl = 1), point-major rows of
-// the MSM's slab or of the tree's level 0 (sw = 1, sl = 2 W; the even or
-// odd rows: sl = 4 W), the even or odd lanes of a tree level (sw = m,
+// the kernels read limb-major tensors (sw = n, sl = 1), point-major rows
+// (sw = 1, sl = 2 W), the even or odd lanes of a tree level (sw = m,
 // sl = 2) and broadcast constants (sl = 0) without a copy; the finish's
-// flag word is a view of one word.  The madd's affine point may be a table
-// read through an index (the slab MSM's gather, fused into the load): lane
-// i then reads row idx[i] of the view, 16 bytes at a time where the rows
-// are point-major and aligned (sw = 1; a G1 row at n32 = 12 is 96 bytes,
-// three full sectors), so the MSM writes and reads back no slab of points.
-// The output is one contiguous (rows, n)
-// block, stored coalesced: (4 W, n) for the xyzz ops, den then the flags,
-// (W + 1, n), for the pair prep, (x, y), (2 W, n), for the pair finish.
+// flag word is a view of one word.  A point operand may be a table read
+// through an index: lane i then reads row idx[i] of the view, 16 bytes at
+// a time where the rows are point-major and aligned (sw = 1; a G1 row at
+// n32 = 12 is 96 bytes, three full sectors).  The slab MSM's madd reads
+// its affine point so, and a tree's first level reads both operands of
+// its pair kernels so (the level-0 index, msm/tree.py): the MSM writes
+// and reads back no gathered copy of the points.  The output is one
+// contiguous (rows, n) block, stored coalesced: (4 W, n) for the xyzz
+// ops, den then the flags, (W + 1, n), for the pair prep, (x, y),
+// (2 W, n), for the pair finish.
 //
-// The lane-pair finish on a tree's first level, whose four point operands
-// are the even and odd point-major rows of level 0 (lane i's x1, y1, x2,
-// y2 are 4 W contiguous words), first copies the block's tile of rows into
-// shared memory with coalesced 16-byte cp.async copies, each row padded by
-// 16 bytes so that a warp's reads spread over the banks; each thread then
-// reads its coefficient's words from there.  Read straight from the rows,
-// the 16 lanes of a warp hit 16 places 8 N words apart on every word.
+// The pair kernels are built twice (TABLE): for a tree's first level,
+// whose point operands are rows of the point table through the index, and
+// for a later level, whose operands are the lanes of the level below, read
+// by plain strided loads (through the table path they took 17% longer).  The
+// lane-pair prep and finish on the first level (x1 || y1 at row idx_l[i],
+// x2 || y2 at row idx_r[i], 2 W words each) first copy the block's rows
+// into a shared-memory tile with 16-byte cp.async copies, neighbouring
+// threads on neighbouring chunks of one row, each lane's 4 W words padded
+// by 16 bytes so that a warp's reads spread over the banks; each thread
+// then reads its coefficient's words from there.  Read straight from the
+// table, the 16 lanes of a warp touch 32 rows on every load.
 //
 // Each entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
@@ -62,20 +67,28 @@ struct Args {
     uint32_t* out;
     long long n;
     mont::Consts<N> c;
-    bool rows;      // the finish's point operands are contiguous rows
+    bool tile;      // the lane-pair pair kernels stage their point operands
+                    // (two tables through an index) in shared memory
 };
 
-// N words of an element, from its word w0: lane i's, or for the madd's
-// affine point (TABLE) row idx[i] of the table where the view has an index
+// row idx[i] of the table whose view is v: the lane's own row without an
+// index; an index past the table's rows stops the kernel, as PyTorch's
+// own index kernels do
+__device__ __forceinline__ long long table_row(const View& v, long long i) {
+    if (!v.idx) return i;
+    long long row = __ldg(v.idx + i);
+    if ((unsigned long long)row >= (unsigned long long)v.rows) __trap();
+    return row;
+}
+
+// N words of an element, from its word w0: lane i's, or for a point
+// operand that may be a table (TABLE) row idx[i] of the table where the
+// view has an index, 16 bytes at a time where the view allows
 template <bool TABLE, int N>
 __device__ __forceinline__ void load_words(const View& v, long long i,
                                            int w0, uint32_t* r) {
     if constexpr (TABLE) {
-        long long row = v.idx ? (long long)__ldg(v.idx + i) : i;
-        // as PyTorch's own index kernels do: a bad index stops the kernel
-        if (v.idx && (unsigned long long)row >= (unsigned long long)v.rows)
-            __trap();
-        const uint32_t* at = v.p + row * v.sl + w0 * v.sw;
+        const uint32_t* at = v.p + table_row(v, i) * v.sl + w0 * v.sw;
         if constexpr (N % 4 == 0) {
             if (v.vec) {
 #pragma unroll
@@ -167,9 +180,11 @@ __device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
 }
 
 // 16 bytes from global to shared memory, asynchronously (cp.async; the
-// caller waits with copy_wait)
+// caller waits with copy_wait), cached in L1 too: many lanes of a tree
+// level read the table's zero row, which then comes from L1 rather than
+// from one L2 slice for every block
 __device__ __forceinline__ void copy16(uint32_t* dst, const uint32_t* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
                      (uint32_t)__cvta_generic_to_shared(dst)),
                  "l"(src)
                  : "memory");
@@ -200,22 +215,34 @@ __device__ __forceinline__ mont::Fp2Pair<N> load_tile(const uint32_t* t) {
     return r;
 }
 
-// the pair finish of lane i from its point operands: inv and the flag
-// word from their views, (x, y) to the output
-template <class E>
-__device__ __forceinline__ void finish(const Args<mont::Elem<E>::BASE>& a,
-                                       long long i, const E& x1, const E& y1,
-                                       const E& x2, const E& y2) {
+// The pair kernel of lane i from its point operands: prep stores den and
+// the flag word (one thread of a lane pair stores the flag), finish reads
+// inv and the flag word from their views and stores (x, y).
+template <class E, int OP>
+__device__ __forceinline__ void pair_op(const Args<mont::Elem<E>::BASE>& a,
+                                        long long i, const E& x1,
+                                        const E& y1, const E& x2,
+                                        const E& y2) {
     constexpr long long W = mont::Elem<E>::WORDS;
-    E ox, oy;
-    pair::finish(x1, y1, x2, y2, load<E>(a.in[4], i),
-                 a.in[5].p[i * a.in[5].sl], ox, oy, a.c);
-    store(a.out, a.n, i, 0, ox);
-    store(a.out, a.n, i, W, oy);
+    if constexpr (OP == PAIR_PREP) {
+        E den;
+        uint32_t f = pair::prep(x1, y1, x2, y2, den, a.c);
+        store(a.out, a.n, i, 0, den);
+        if (mont::Elem<E>::THREADS == 1 || (threadIdx.x & 1) == 0)
+            a.out[W * a.n + i] = f;
+    } else {
+        E ox, oy;
+        pair::finish(x1, y1, x2, y2, load<E>(a.in[4], i),
+                     a.in[5].p[i * a.in[5].sl], ox, oy, a.c);
+        store(a.out, a.n, i, 0, ox);
+        store(a.out, a.n, i, W, oy);
+    }
 }
 
-// The body of every point kernel.
-template <class E, int OP>
+// The body of every point kernel.  TABLE: the pair kernels' point
+// operands are tables read through an index (a tree's first level); the
+// madd's affine point always may be.
+template <class E, int OP, bool TABLE>
 __device__ __forceinline__ void point_op(
     const Args<mont::Elem<E>::BASE>& a) {
     // lane i: one thread, or the lane pair (2i, 2i + 1), which exits or
@@ -223,67 +250,63 @@ __device__ __forceinline__ void point_op(
     constexpr int T = mont::Elem<E>::THREADS;
     long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) / T;
     constexpr long long W = mont::Elem<E>::WORDS;
-    if constexpr (OP == PAIR_FINISH && T == 2) {
-        // the block's LANES rows of 4 W words, each padded by 4 words
+    constexpr bool PAIR = OP == PAIR_PREP || OP == PAIR_FINISH;
+    if constexpr (PAIR && T == 2 && TABLE) {
+        // the block's LANES rows of 4 W words (x1 y1 from the l table, x2
+        // y2 from the r table), each padded by 4 words
         constexpr int N = mont::Elem<E>::BASE, LANES = THREADS / T;
-        constexpr int R = 4 * W, S = R + 4;
+        constexpr int C = 2 * W / 4, S = 4 * W + 4;  // 16-byte chunks a row
         __shared__ __align__(16) uint32_t tile[LANES * S];
-        if (a.rows) {
+        if (a.tile) {
             long long i0 = (long long)blockIdx.x * LANES;
             long long lanes = a.n - i0 < LANES ? a.n - i0 : LANES;
-            const uint32_t* src = a.in[0].p + i0 * R;
-            for (int k = threadIdx.x; k < lanes * (R / 4); k += THREADS)
-                copy16(tile + (k / (R / 4)) * S + (k % (R / 4)) * 4,
-                       src + 4 * k);
+            for (int k = threadIdx.x; k < lanes * 2 * C; k += THREADS) {
+                int j = k / (2 * C), h = k / C % 2, q = k % C;
+                const View& v = a.in[2 * h];
+                copy16(tile + j * S + h * 2 * W + 4 * q,
+                       v.p + table_row(v, i0 + j) * v.sl + 4 * q);
+            }
             copy_wait();
             __syncthreads();
             if (i >= a.n) return;
             const uint32_t* t = tile + (threadIdx.x / T) * S +
                                 (mont::pair_odd() ? N : 0);
-            finish<E>(a, i, load_tile<N>(t), load_tile<N>(t + W),
-                      load_tile<N>(t + 2 * W), load_tile<N>(t + 3 * W));
+            pair_op<E, OP>(a, i, load_tile<N>(t), load_tile<N>(t + W),
+                           load_tile<N>(t + 2 * W), load_tile<N>(t + 3 * W));
             return;
         }
     }
     if (i >= a.n) return;
-    if (OP == PAIR_PREP) {
-        E den;
-        uint32_t f = pair::prep(load<E>(a.in[0], i), load<E>(a.in[1], i),
-                                load<E>(a.in[2], i), load<E>(a.in[3], i),
-                                den, a.c);
-        store(a.out, a.n, i, 0, den);
-        a.out[W * a.n + i] = f;
-        return;
-    }
-    if (OP == PAIR_FINISH) {
-        finish<E>(a, i, load<E>(a.in[0], i), load<E>(a.in[1], i),
-                  load<E>(a.in[2], i), load<E>(a.in[3], i));
-        return;
-    }
-    xyzz::Point<E> r;
-    if (OP == MADD) {
-        r = xyzz::madd(load_point<E>(a.in, i), load<E, true>(a.in[4], i),
-                       load<E, true>(a.in[5], i), a.c);
-    } else if (OP == ADD) {
-        r = xyzz::add(load_point<E>(a.in, i), load_point<E>(a.in + 4, i),
-                      a.c);
+    if constexpr (PAIR) {
+        pair_op<E, OP>(a, i, load<E, TABLE>(a.in[0], i),
+                       load<E, TABLE>(a.in[1], i), load<E, TABLE>(a.in[2], i),
+                       load<E, TABLE>(a.in[3], i));
     } else {
-        r = xyzz::dbl(load_point<E>(a.in, i), a.c);
+        xyzz::Point<E> r;
+        if constexpr (OP == MADD) {
+            r = xyzz::madd(load_point<E>(a.in, i), load<E, true>(a.in[4], i),
+                           load<E, true>(a.in[5], i), a.c);
+        } else if constexpr (OP == ADD) {
+            r = xyzz::add(load_point<E>(a.in, i), load_point<E>(a.in + 4, i),
+                          a.c);
+        } else {
+            r = xyzz::dbl(load_point<E>(a.in, i), a.c);
+        }
+        store(a.out, a.n, i, 0 * W, r.x);
+        store(a.out, a.n, i, 1 * W, r.y);
+        store(a.out, a.n, i, 2 * W, r.zz);
+        store(a.out, a.n, i, 3 * W, r.zzz);
     }
-    store(a.out, a.n, i, 0 * W, r.x);
-    store(a.out, a.n, i, 1 * W, r.y);
-    store(a.out, a.n, i, 2 * W, r.zz);
-    store(a.out, a.n, i, 3 * W, r.zzz);
 }
 
 // __launch_bounds__ gives ptxas no minimum of blocks an SM, so it picks
 // each kernel's registers itself.  A minimum of 1, 3 or 4 blocks was timed
 // on the H100 (variants.py, PERF.md): none ran faster than ptxas's own
 // choice for the lane-pair add and finish or the G1 madd on mont::Fp.
-template <class E, int OP>
+template <class E, int OP, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
 ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
-    point_op<E, OP>(a);
+    point_op<E, OP, TABLE>(a);
 }
 
 template <class E>
@@ -296,14 +319,14 @@ namespace min3 {
 // ptxas then fits them in 168 registers with a few spilled words, where
 // it picks 178 and 212 (2 blocks an SM), and they ran 7% and 12% faster
 // on the H100 (variants.py, PERF.md).
-template <class E, int OP>
+template <class E, int OP, bool TABLE>
 __global__ void __launch_bounds__(THREADS, 3)
 ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
-    point_op<E, OP>(a);
+    point_op<E, OP, TABLE>(a);
 }
 }  // namespace min3
 
-template <class E, int OP>
+template <class E, int OP, bool TABLE>
 void launch(const long long* views, int n_in, uint32_t* out, long long n,
             const uint32_t* consts, cudaStream_t s) {
     constexpr int N = mont::Elem<E>::BASE;
@@ -322,27 +345,37 @@ void launch(const long long* views, int n_in, uint32_t* out, long long n,
     a.out = out;
     a.n = n;
     a.c = mont::make_consts<N>(consts);
-    // the lane-pair finish stages level 0's rows: x1, y1, x2, y2 of lane i
-    // at in[0].p + 4 W i, 16-byte aligned
+    // the lane-pair pair kernels stage their point operands where each of
+    // l and r is a table through one index, in aligned point-major rows
+    // with y's words right after x's: lane i's 2 W words at row idx[i]
     constexpr long long W = mont::Elem<E>::WORDS;
-    a.rows = OP == PAIR_FINISH && mont::Elem<E>::THREADS == 2 &&
-             (views[0] & 15) == 0;
-    for (int k = 0; k < 4; k++)
-        a.rows = a.rows && views[5 * k] == views[0] + 4 * k * W &&
-                 views[5 * k + 1] == 1 && views[5 * k + 2] == 4 * W;
+    a.tile = TABLE && (OP == PAIR_PREP || OP == PAIR_FINISH) &&
+             mont::Elem<E>::THREADS == 2;
+    for (int k = 0; k < 4; k += 2)
+        a.tile = a.tile && a.in[k].idx && a.in[k].vec &&
+                 a.in[k + 1].idx == a.in[k].idx &&
+                 a.in[k + 1].p == a.in[k].p + W &&
+                 a.in[k + 1].sw == 1 && a.in[k + 1].sl == a.in[k].sl;
     long long threads = n * mont::Elem<E>::THREADS;
     unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
     if constexpr (carry_chains<E>)
-        min3::ec_kernel<E, OP><<<blocks, THREADS, 0, s>>>(a);
+        min3::ec_kernel<E, OP, TABLE><<<blocks, THREADS, 0, s>>>(a);
     else
-        ec_kernel<E, OP><<<blocks, THREADS, 0, s>>>(a);
+        ec_kernel<E, OP, TABLE><<<blocks, THREADS, 0, s>>>(a);
+}
+
+// whether a pair kernel's point operands are tables read through an
+// index: views 0 (l's x) or 2 (r's x) carry one
+inline bool indexed(const void* views) {
+    auto v = static_cast<const long long*>(views);
+    return v[5 * 0 + 3] || v[5 * 2 + 3];
 }
 
 // The launch for base width n32 of element family F (mont::Fp,
 // mont::FpCC, mont::Fp2 or mont::Fp2Pair): N = 2, 8 or 12; another width is
 // refused.  views: [pointer, sw, sl, index or 0, the index's table rows]
 // per input coordinate.
-template <template <int> class F, int OP>
+template <template <int> class F, int OP, bool TABLE = false>
 int dispatch(int n32, const void* views, int n_in, void* out, long long n,
              const void* consts, void* stream) {
     auto V = static_cast<const long long*>(views);
@@ -350,9 +383,9 @@ int dispatch(int n32, const void* views, int n_in, void* out, long long n,
     auto C = static_cast<const uint32_t*>(consts);
     auto s = static_cast<cudaStream_t>(stream);
     switch (n32) {
-        case 2: launch<F<2>, OP>(V, n_in, O, n, C, s); break;
-        case 8: launch<F<8>, OP>(V, n_in, O, n, C, s); break;
-        case 12: launch<F<12>, OP>(V, n_in, O, n, C, s); break;
+        case 2: launch<F<2>, OP, TABLE>(V, n_in, O, n, C, s); break;
+        case 8: launch<F<8>, OP, TABLE>(V, n_in, O, n, C, s); break;
+        case 12: launch<F<12>, OP, TABLE>(V, n_in, O, n, C, s); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();

@@ -18,26 +18,33 @@
 // five coordinates moved per lane, so memory bounds it; finish does two
 // products, a squaring and five additions against seven coordinates moved,
 // about even between the integer multiply rate and memory at n32 = 12.
-// The operands of a level are the even and odd slots of the level below,
-// read in place through strided views: every other point-major row of the
-// gathered level 0, every other lane of a later level.  One thread per
-// pair; the tangent leg is a per-lane branch that shares the chord's
-// completion.
+// On a tree's first level the point operands are rows of the point table
+// read through the level-0 index, 16 bytes at a time (a row at n32 = 12 is
+// 96 bytes: x at byte 0, y at byte 48); on a later level they are the even
+// and odd lanes of the level below, read in place.  One thread per pair;
+// the tangent leg is a per-lane branch that shares the chord's completion.
 
 #include "ec_kernel.cuh"
 
-// views: the host array [pointer, sw, sl] per input, in order (x1, y1, x2,
-// y2) for prep, (x1, y1, x2, y2, inv, flags) for finish.  out: (n32 + 1,
+// views: the host array [pointer, sw, sl, index or 0, the index's table
+// rows] per input, in order (x1, y1, x2, y2) for prep, (x1, y1, x2, y2,
+// inv, flags) for finish.  out: (n32 + 1,
 // n), den then the flags, for prep; (2, n32, n) for finish.  consts: [p,
 // one, a4, m0, nr] (ff/kernels.py:field_consts).
 extern "C" int ec_pair_prep(int n32, const void* views, void* out,
                             long long n, const void* consts, void* stream) {
+    if (ec::indexed(views))
+        return ec::dispatch<mont::Fp, ec::PAIR_PREP, true>(
+            n32, views, 4, out, n, consts, stream);
     return ec::dispatch<mont::Fp, ec::PAIR_PREP>(n32, views, 4, out, n,
                                                  consts, stream);
 }
 
 extern "C" int ec_pair_finish(int n32, const void* views, void* out,
                               long long n, const void* consts, void* stream) {
+    if (ec::indexed(views))
+        return ec::dispatch<mont::Fp, ec::PAIR_FINISH, true>(
+            n32, views, 6, out, n, consts, stream);
     return ec::dispatch<mont::Fp, ec::PAIR_FINISH>(n32, views, 6, out, n,
                                                    consts, stream);
 }

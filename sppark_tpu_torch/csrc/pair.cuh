@@ -1,9 +1,9 @@
 // Batch-affine pair add formulas for the kernels of ec_pair.cu (G1,
-// element mont::Fp<N>) and ec_fp2_pair.cu (G2: prep on mont::Fp2<N>,
-// finish on the lane pair's mont::Fp2Pair<N>): the two halves of one level
-// of the segmented-tree MSM (msm/tree.py), around a batch inversion that
-// runs across all lanes between them.  One pair per thread (or per lane
-// pair of threads), every coordinate in registers.
+// element mont::Fp<N>) and ec_fp2_pair.cu (G2, on the lane pair's
+// mont::Fp2Pair<N>): the two halves of one level of the segmented-tree
+// MSM (msm/tree.py), around a batch inversion that runs across all lanes
+// between them.  One pair per thread (or per lane pair of threads), every
+// coordinate in registers.
 //
 // An affine point is (x, y); infinity is x == y == 0 (ec/affine_t.hpp:31).
 // prep gives the chord or tangent denominator and a flag word, bit for bit

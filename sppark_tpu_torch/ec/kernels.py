@@ -21,10 +21,12 @@ strides) when its batch dimensions merge into one, so the even and odd
 slots of a tree level and broadcast constants are read in place; the
 output is one new block: (4, W, *batch) for the xyzz ops, returned as four
 coordinates; den and a flag word per lane for the pair prep; (x, y) for
-the pair finish.  The madd's affine point may instead be a table, two
-(W, rows) coordinates, and an int32 index of one row per lane: the slab
-MSM's point table and slot index (msm/slab.py), read by the kernel in
-place of a gathered slab.
+the pair finish.  A point operand may instead be a table, two (W, rows)
+coordinates, read through an int32 index of one row per lane: the madd's
+affine point (the slab MSM's point table and slot index, msm/slab.py)
+and the pair kernels' l and r on a tree's first level (the same table,
+through the even and odd halves of the tree's level-0 index,
+msm/tree.py), read by the kernels in place of a gathered copy.
 """
 
 from __future__ import annotations
@@ -92,25 +94,28 @@ def kernel_name(op: str, curve: str) -> str:
 
 def _launch(op: str, curve: str, coords, flags=None, idx=None):
     """Run op on the card over `coords` (and, for the pair finish, the
-    flag word per lane; for the madd with `idx`, the last two coordinates
-    are a table whose row idx[i] lane i reads).  Returns the output block
-    (rows, *batch): 4 W rows for the xyzz ops, W + 1 for the pair prep,
-    2 W for the finish."""
+    flag word per lane).  `idx`, where given, has one entry a coordinate:
+    None for a per-lane coordinate, or an int32 index for a coordinate
+    that is a (W, rows) table, of which lane i reads row idx[i].  Returns
+    the output block (rows, *batch): 4 W rows for the xyzz ops, W + 1 for
+    the pair prep, 2 W for the finish."""
     cp = get_curve(curve)
     degree = cp.degree
     name = kernel_name(op, curve)
     FK.check_words(name, cp.field, *coords, degree=degree)
-    table = () if idx is None else tuple(coords[-2:])
-    coords = list(torch.broadcast_tensors(*coords[:len(coords)
-                                                  - len(table)]))
+    idx = tuple(idx) if idx is not None else (None,) * len(coords)
+    lane = [c for c, i in zip(coords, idx) if i is None]
+    if lane:
+        lane = list(torch.broadcast_tensors(*lane))
+        batch = tuple(lane[0].shape[1:])
+    else:
+        batch = tuple(next(i for i in idx if i is not None).shape)
     n32, words = cp.field.n_ref_limbs, coords[0].shape[0]
-    batch = tuple(coords[0].shape[1:])
     if flags is not None:
         if flags.dtype != torch.int32 or tuple(flags.shape) != batch or \
                 flags.device != coords[0].device:
             raise ValueError(f"{name}: flags must be int32 of shape {batch} "
                              f"on {coords[0].device}")
-        coords.append(flags[None])
     rows = {"pair_prep": words + 1, "pair_finish": 2 * words}.get(
         op, 4 * words)
     n = math.prod(batch)
@@ -118,15 +123,18 @@ def _launch(op: str, curve: str, coords, flags=None, idx=None):
                       device=coords[0].device)
     if n == 0:
         return out
-    kept = [c.reshape(c.shape[0], n) for c in coords]  # a copy only if needed
-    kept += table
+    lane = iter(lane)
+    kept = [c if i is not None else next(lane).reshape(c.shape[0], n)
+            for c, i in zip(coords, idx)]      # a copy only if needed
+    idx = [i if i is None else i.contiguous() for i in idx]
+    if flags is not None:
+        kept.append(flags[None])
+        idx.append(None)
     views = np.zeros(5 * len(kept), dtype=np.int64)
-    for k, v in enumerate(kept):
+    for k, (v, i) in enumerate(zip(kept, idx)):
         views[5 * k:5 * k + 3] = (v.data_ptr(), v.stride(0), v.stride(1))
-    if idx is not None:
-        idx = idx.contiguous()
-        views[5 * len(coords) + 3::5] = idx.data_ptr()
-        views[5 * len(coords) + 4::5] = table[0].shape[1]
+        if i is not None:
+            views[5 * k + 3:5 * k + 5] = (i.data_ptr(), v.shape[1])
     with torch.cuda.device(out.device):
         rc = getattr(_lib(name), name)(
             n32, views.ctypes.data, out.data_ptr(), n,
@@ -146,35 +154,53 @@ def _on_cpu(coords) -> bool:
     return all(c.device.type == "cpu" for c in coords)
 
 
-def _check_idx(curve: str, p, a, idx) -> None:
-    """Refuse a table index the madd cannot take: other than a 1-D int32
-    tensor of p's lanes (every coordinate of p (W, n), not broadcast) on
-    p's device, or a table other than two (W, rows)
-    coordinates of fewer than 2^31 rows.  An index value outside [0,
-    rows) makes the plain version raise and the kernel trap, as PyTorch's
-    own index kernels do."""
-    name = kernel_name("xyzz_madd", curve)
+def _check_idx(name: str, table, idx, lanes) -> None:
+    """Refuse a table index a kernel cannot take: other than a 1-D int32
+    tensor of the lane count on the table's device, or a table other than
+    two (W, rows) coordinates of fewer than 2^31 rows.  `lanes`: the
+    per-lane operands (the madd's bucket, the finish's inv), each
+    (W, n) with n the index's length, not broadcast.  An index value
+    outside [0, rows) makes the plain version raise and the kernel trap,
+    as PyTorch's own index kernels do."""
     if not isinstance(idx, torch.Tensor) or idx.dtype != torch.int32:
         raise TypeError(f"{name}: idx must be an int32 tensor")
-    lanes = tuple(p[0].shape[1:])
-    if idx.device != p[0].device or idx.ndim != 1 or any(
-            tuple(c.shape[1:]) != tuple(idx.shape) for c in p):
-        raise ValueError(f"{name}: idx must be a 1-D tensor of p's "
-                         f"{lanes} lanes on {p[0].device}")
-    if len(a) != 2 or any(c.ndim != 2 or c.shape[1] != a[0].shape[1]
-                          for c in a) or a[0].shape[1] >= 1 << 31:
+    if len(table) != 2 or any(c.ndim != 2 or c.shape[1] != table[0].shape[1]
+                              for c in table) or \
+            table[0].shape[1] >= 1 << 31:
         raise ValueError(f"{name}: the table must be two (W, rows) "
                          f"coordinates of fewer than 2^31 rows")
+    dev = table[0].device
+    if idx.device != dev or idx.ndim != 1 or any(
+            tuple(c.shape[1:]) != tuple(idx.shape) for c in lanes):
+        raise ValueError(f"{name}: idx must be a 1-D tensor of the "
+                         f"operands' lanes on {dev}")
+
+
+def _check_pair_idx(name: str, l, r, idx, lanes=()) -> None:
+    """Refuse what the indexed pair kernels cannot take: idx other than a
+    pair (idx_l, idx_r) of equal length, each an index _check_idx takes
+    into its table (l, r)."""
+    if not isinstance(idx, (tuple, list)) or len(idx) != 2:
+        raise TypeError(f"{name}: idx must be a pair (idx_l, idx_r)")
+    for t, i in ((l, idx[0]), (r, idx[1])):
+        _check_idx(name, t, i, lanes)
+    if idx[0].shape != idx[1].shape:
+        raise ValueError(f"{name}: idx_l and idx_r must be of one length")
 
 
 # -- plain versions ------------------------------------------------------------------
+
+def _gather(table, idx):
+    """The table's rows idx: (W, len(idx)) coordinates."""
+    return tuple(c.index_select(1, idx) for c in table)
+
 
 def xyzz_madd_plain(curve: str, p, a, idx=None):
     """Plain version of ec_xyzz_madd and ec_fp2_xyzz_madd; with `idx`, the
     table a's rows idx gathered first."""
     if idx is not None:
-        _check_idx(curve, p, a, idx)
-        a = tuple(c.index_select(1, idx) for c in a)
+        _check_idx(kernel_name("xyzz_madd", curve), a, idx, p)
+        a = _gather(a, idx)
     return get_curve_ops(curve, FK.PLAIN).xyzz_madd(p, a)
 
 
@@ -192,14 +218,18 @@ def xyzz_dbl_plain(curve: str, p):
 ACTIVE, DBL, USE_R, USE_L = 1, 2, 4, 8
 
 
-def affine_pair_prep_plain(curve: str, l, r):
+def affine_pair_prep_plain(curve: str, l, r, idx=None):
     """Plain version of ec_pair_prep and ec_fp2_pair_prep: for affine l =
-    (x1, y1) and r = (x2, y2), (den, flags).  den is the chord's x2 - x1,
+    (x1, y1) and r = (x2, y2), (den, flags); with idx = (idx_l, idx_r), l
+    and r are tables, gathered first.  den is the chord's x2 - x1,
     the tangent's 2 y1, or 1 where there is nothing to invert; flags (int32
     per lane) is the TPU kernel's word bit for bit: ACTIVE (a chord or
     tangent), DBL (active and l == r), USE_R (l infinite, r not), USE_L (r
     infinite, l not).  l == -r and a y1 == 0 doubling are neither active
     nor a copy: their sum is infinity."""
+    if idx is not None:
+        _check_pair_idx(kernel_name("pair_prep", curve), l, r, idx)
+        l, r = _gather(l, idx[0]), _gather(r, idx[1])
     F = get_curve_ops(curve, FK.PLAIN).F
     (x1, y1), (x2, y2) = l, r
     x1, y1, x2, y2 = torch.broadcast_tensors(x1, y1, x2, y2)
@@ -219,11 +249,15 @@ def affine_pair_prep_plain(curve: str, l, r):
     return den, flags
 
 
-def affine_pair_finish_plain(curve: str, l, r, inv, flags):
+def affine_pair_finish_plain(curve: str, l, r, inv, flags, idx=None):
     """Plain version of ec_pair_finish and ec_fp2_pair_finish: l + r from
-    inv = 1 / den and prep's flags.  lambda = (y2 - y1) inv, or (3 x1^2 +
+    inv = 1 / den and prep's flags (with idx, l and r tables gathered
+    first, as in affine_pair_prep_plain).  lambda = (y2 - y1) inv, or (3 x1^2 +
     a4) inv where DBL; x3 = lambda^2 - x1 - x2, y3 = lambda (x1 - x3) - y1;
     then the selects in the TPU kernel's order: active -> USE_R -> USE_L."""
+    if idx is not None:
+        _check_pair_idx(kernel_name("pair_finish", curve), l, r, idx, (inv,))
+        l, r = _gather(l, idx[0]), _gather(r, idx[1])
     cp = get_curve(curve)
     F = get_curve_ops(curve, FK.PLAIN).F
     (x1, y1), (x2, y2) = l, r
@@ -251,9 +285,11 @@ def xyzz_madd(curve: str, p, a, idx=None):
     coords = tuple(p) + tuple(a)
     if _on_cpu(coords):
         return xyzz_madd_plain(curve, p, a, idx)
-    if idx is not None:
-        _check_idx(curve, p, a, idx)
-    return _xyzz(_launch("xyzz_madd", curve, coords, idx=idx))
+    if idx is None:
+        return _xyzz(_launch("xyzz_madd", curve, coords))
+    _check_idx(kernel_name("xyzz_madd", curve), a, idx, p)
+    return _xyzz(_launch("xyzz_madd", curve, coords,
+                         idx=(None,) * 4 + (idx,) * 2))
 
 
 def xyzz_add(curve: str, p, q):
@@ -271,21 +307,37 @@ def xyzz_dbl(curve: str, p):
     return _xyzz(_launch("xyzz_dbl", curve, tuple(p)))
 
 
-def affine_pair_prep(curve: str, l, r):
-    """(den, flags) of the batch-affine pair add l + r, lane by lane."""
+def affine_pair_prep(curve: str, l, r, idx=None):
+    """(den, flags) of the batch-affine pair add l + r, lane by lane; with
+    idx = (idx_l, idx_r) (int32, one per lane), lane i's l and r are row
+    idx_l[i] of the table l and row idx_r[i] of the table r, each two
+    (W, rows) coordinates."""
     coords = tuple(l) + tuple(r)
     if _on_cpu(coords):
-        return affine_pair_prep_plain(curve, l, r)
-    out = _launch("pair_prep", curve, coords)
+        return affine_pair_prep_plain(curve, l, r, idx)
+    out = _launch("pair_prep", curve, coords,
+                  idx=_pair_views(curve, "pair_prep", l, r, idx))
     return out[:-1], out[-1]
 
 
-def affine_pair_finish(curve: str, l, r, inv, flags):
-    """l + r from inv = 1 / den and the flags of affine_pair_prep."""
+def affine_pair_finish(curve: str, l, r, inv, flags, idx=None):
+    """l + r from inv = 1 / den and the flags of affine_pair_prep; idx as
+    there."""
     coords = tuple(l) + tuple(r) + (inv,)
     if _on_cpu(coords + (flags,)):
-        return affine_pair_finish_plain(curve, l, r, inv, flags)
-    return tuple(_launch("pair_finish", curve, coords, flags).chunk(2))
+        return affine_pair_finish_plain(curve, l, r, inv, flags, idx)
+    views = _pair_views(curve, "pair_finish", l, r, idx, (inv,))
+    return tuple(_launch("pair_finish", curve, coords, flags,
+                         None if views is None else views + (None,)).chunk(2))
+
+
+def _pair_views(curve, op, l, r, idx, lanes=()):
+    """The per-coordinate indices of an indexed pair kernel: idx_l for
+    l's x and y, idx_r for r's; None without idx."""
+    if idx is None:
+        return None
+    _check_pair_idx(kernel_name(op, curve), l, r, idx, lanes)
+    return (idx[0],) * 2 + (idx[1],) * 2
 
 
 class Kernels(NamedTuple):

@@ -237,8 +237,11 @@ class MSMTreeStages(_Stages):
 
     def plan(self, stats):
         """(m0, lmax, wg) from the schedule's stats: the windows per
-        accumulate call keep the ~3 m0 slots of level 0, level 1 and the
-        inversion's tree under BUDGET."""
+        accumulate call keep ~3 m0 point slots under BUDGET, the count of
+        a level 0 of gathered points, level 1 and the inversion's tree.
+        Level 0 is now a 4-byte index a slot (tree.level0_index), but the
+        budget still counts its points, so the window grouping and the
+        launch shapes stay as they were."""
         m0, lmax = tree.plan_layout([int(v) for v in stats.tolist()])
         per_win = 3 * m0 * self._slot_bytes()
         return m0, lmax, max(1, min(self.nwins, self.BUDGET // per_win))

@@ -6,14 +6,18 @@ sppark_tpu/msm/tree.py (mode="tree").
     padding holding the affine identity (0, 0).  Runs are laid out in
     descending size order, so each run starts at a multiple of its own size
     and the pairs (2i, 2i + 1) of every level stay inside one run.
-  * Level 0 is ONE row gather per window group from the gather table
-    (slab.point_rows), which applies each digit's sign and blanks the
-    padding: the slab's gather, with the tree's slot maps.
+  * Level 0 is an index, not a copy of the points: slot q names a row of
+    the gather table (slab.point_rows: point i, -point i at n + i, the
+    zero row 2n past a run's end), so the index applies each digit's sign
+    and blanks the padding.  It is int32, split into the even and the odd
+    slots (level0_index); the JAX package gathers the points themselves.
   * Each of lmax levels adds the even slots to the odd ones by the
     batch-affine pair add: the prep kernel, one batch inversion across
     every lane of the level (on the card the three launches of
-    ff/kernels.py:mont_batch_inv), the finish kernel.  Its operands are
-    views of the level below, read in place.
+    ff/kernels.py:mont_batch_inv), the finish kernel.  Level 1's prep and
+    finish read l and r from the table through the two halves of the
+    index; each later level's operands are views of the level below,
+    read in place.
   * A run of c slots finishes at level lg(c); its bucket's sum is taken
     from that level as it is made (the JAX package concatenates every
     level and gathers once at the end: the same words).
@@ -49,14 +53,15 @@ def batch_inv_flat(F, den):
     return F.batch_inv_tree(flat)[:, :n].reshape(den.shape)
 
 
-def affine_pair_add(curve: str, l, r, kern: Kernels = KERNELS):
+def affine_pair_add(curve: str, l, r, kern: Kernels = KERNELS, idx=None):
     """l + r over affine (x, y) batches, lane by lane: either operand at
     infinity, doubling, cancellation (the port of tree.py:affine_pair_add
     and of pallas_ops.py:fused_affine_pair): prep -> batch inversion ->
-    finish."""
+    finish.  With idx = (idx_l, idx_r), l and r are tables read through
+    them (ec/kernels.py)."""
     F = get_curve_ops(curve, kern.field).F
-    den, flags = kern.pair_prep(curve, l, r)
-    return kern.pair_finish(curve, l, r, batch_inv_flat(F, den), flags)
+    den, flags = kern.pair_prep(curve, l, r, idx)
+    return kern.pair_finish(curve, l, r, batch_inv_flat(F, den), flags, idx)
 
 
 def make_tree_schedule(breakdown, nbuckets: int):
@@ -111,38 +116,49 @@ def plan_layout(stats) -> tuple:
     return -(-total // gran) * gran, lmax
 
 
-def level0(sorted_val, base, occ, sb, pb2, m0: int, rows):
-    """Level 0 of a window group: (wg * m0, 2 W) point-major rows, slot q
-    of window w at row w * m0 + q, holding the rank-th point of the run
-    that covers q, signed, or the zero point past the run's end."""
+def level0_index(sorted_val, base, occ, sb, pb2, m0: int):
+    """Level 0 of a window group as an index into the gather table:
+    (2, wg * m0 / 2) int32, row 0 the even slots and row 1 the odd ones.
+    Slot q of window w (flat w * m0 + q) holds the table's row of the
+    rank-th point of the run that covers q, signed (n + i for -point i),
+    or 2n, the zero row, past the run's end."""
     wg, n = sorted_val.shape
     rb2 = spread(pb2, pb2, m0)
-    ob = spread(torch.gather(base, 1, sb), pb2, m0)
-    oc = spread(torch.gather(occ, 1, sb), pb2, m0)
     rank = torch.arange(m0, dtype=torch.int64, device=rb2.device)[None] - rb2
-    payload = torch.gather(sorted_val, 1, torch.clamp(ob + rank, max=n - 1))
-    gidx = torch.where(rank < oc, (payload & IDX_MASK) + n * (payload >> 31),
-                       2 * n)
-    return rows.index_select(0, gidx.reshape(-1))
+    del rb2
+    src = spread(torch.gather(base, 1, sb), pb2, m0).add_(rank)
+    payload = torch.gather(sorted_val, 1, src.clamp_(max=n - 1))
+    del src
+    valid = rank < spread(torch.gather(occ, 1, sb), pb2, m0)
+    del rank
+    gidx = torch.where(valid, (payload & IDX_MASK) + n * (payload >> 31),
+                       2 * n).to(torch.int32)
+    return gidx.reshape(-1, 2).T.contiguous()
 
 
 def accumulate(curve: str, m0: int, lmax: int, sorted_val, base, occ, sb,
                pb2, rb2o, lev, rows, kern: Kernels = KERNELS):
     """Affine bucket sums (x, y), each (W, wg, B), of one window group:
-    level 0's gather, lmax levels of pair adds, each bucket's sum taken at
-    the level where its run finished (slot rb2o >> lev of its window)."""
+    level 0's index, level 1's pair adds read from the table `rows`
+    through it, lmax - 1 more levels of pair adds on the level below,
+    each bucket's sum taken at the level where its run finished (slot
+    rb2o >> lev of its window)."""
     wg, B = lev.shape
     w = rows.shape[1] // 2
     with record_function("msm.gather"):
-        pts = level0(sorted_val, base, occ, sb, pb2, m0, rows)
-        x, y = pts[:, :w].T, pts[:, w:].T          # (W, wg * m0) views
-        del pts
+        idx = level0_index(sorted_val, base, occ, sb, pb2, m0)
+    table = (rows[:, :w].T, rows[:, w:].T)      # (W, 2n + 1) views
     win = torch.arange(wg, dtype=torch.int64, device=lev.device)[:, None]
     bx = by = torch.zeros((w, wg * B), dtype=torch.int32, device=lev.device)
     for level in range(1, lmax + 1):
         with record_function("msm.tree_levels"):
-            x, y = affine_pair_add(curve, (x[:, 0::2], y[:, 0::2]),
-                                   (x[:, 1::2], y[:, 1::2]), kern)
+            if level == 1:
+                x, y = affine_pair_add(curve, table, table, kern,
+                                       (idx[0], idx[1]))
+                del idx
+            else:
+                x, y = affine_pair_add(curve, (x[:, 0::2], y[:, 0::2]),
+                                       (x[:, 1::2], y[:, 1::2]), kern)
         with record_function("msm.extract"):
             done = (lev == level).reshape(-1)
             at = (win * (m0 >> level) + (rb2o >> level)).reshape(-1)

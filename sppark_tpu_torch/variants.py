@@ -2,52 +2,58 @@
 wide NTT's row and column passes, timed against the committed ones on one
 card and on the same data:
 
-    python3 -m sppark_tpu_torch.variants [--parent FILE] [part of a name]
+    python3 -m sppark_tpu_torch.variants [--parent DIR] [part of a name]
     python3 -m sppark_tpu_torch.variants --sass [source ...]
 
 (with an argument, only the variants whose name holds it, and the
-committed kernels they replace; with --parent, one more variant of
-csrc/ntt_wide.cu whose text is FILE, for instance the source at an earlier
-commit (`git show REV:sppark_tpu_torch/csrc/ntt_wide.cu > FILE`); with
---sass, no timing: ptxas's registers and the SASS counts of the committed
-N = 12 point kernels and N = 8 wide NTT kernels of the named sources,
-default all, and of the probes below)
+committed kernels they replace; with --parent, one more variant of each
+chosen source built from DIR, a copy of csrc/ at an earlier commit
+(`git archive REV sppark_tpu_torch/csrc | tar -x -C DIR0`, DIR =
+DIR0/sppark_tpu_torch/csrc); with --sass, no timing: ptxas's registers
+and the SASS counts of the committed N = 12 point kernels and N = 8 wide
+NTT kernels of the named sources, default all, and of the probes below)
 
 Each variant is a scratch copy of csrc/ under build/variants/ (git-ignored)
-with one change to its text.  For the lane-pair fp2 add and pair finish:
-one thread a lane (`mont::Fp2`, their element before the lane pair), a
-minimum of 1, 3 or 4 blocks an SM in `__launch_bounds__` (which caps ptxas
-at 65536 / (128 blocks) registers a thread; the committed kernels give no
-minimum), or the finish's direct strided loads in place of its
-shared-memory tile of level 0's rows.  For the G1 madd and add: their
-element before the carry chains (`mont::Fp`, with no minimum of blocks),
-or a minimum of 1 or 2 blocks, or none, in place of the committed 3.
-For the batch inversion (csrc/batch_inv.cu): other blocks of T threads of
-C lanes, and in degree 2 the norm recomputed in the down kernel in place
-of the one the up kernel stores.  For the wide NTT passes
-(csrc/ntt_wide.cu): radix 4 or 16 in place of 8 (RADIX_LG stages a pass),
-radix 16 on 128 threads a block, and no minimum of blocks an SM or a
-minimum of 1 or 3 in place of the committed 2.  The point kernels'
-variants are built at n32 = 12 only.  The script prints ptxas's
-registers and spills of each, and the static SASS instructions by class
-of each N = 12 point kernel and N = 8 wide NTT kernel (`cuobjdump -sass`:
-IMAD, IMAD.MOV, IADD3, other integer, branch, memory, other), then each
-one's time by CUDA events at the main paths' shapes on random canonical
-words: the G2 add at 147,456 lanes (the G2 slab's fold), every lane
-taking the fast leg; the G2 finish at level 1's 6,459,904 lanes on
-point-major rows, every lane a chord; the G1 madd at 294,912 lanes
-through a table of 589,825 rows and a random slot index, and the G1 add
-at 294,912 lanes, every lane on the fast leg; the batch inversion's three
-launches at the trees' level 1, 12,964,864 BLS12-381 Fp lanes and
-6,459,904 Fp2 lanes; the wide NTT's column pass at (8, 256, 262144),
-lg 8, and its row pass at (8, 256, 256, 1024), lg 10, out_t (the
-BLS12-381 Fr NTT 2^26's shapes).  Two rounds in opposite orders; each
-output equals the committed kernel's word for word.  The probes are one
-field op of each base-field element at N = 8 and 12 (mul, sqr, add, sub,
-and a copy for the loads and stores around it) in a kernel of its own,
-whose SASS counts give the instructions of one op.  The committed
-kernels' own registers are printed by chip_smoke.py.  Nothing of the port
-calls this module.
+with one change to its text.  For the lane-pair fp2 add and pair kernels:
+one thread a lane (`mont::Fp2`, each one's element before the lane pair;
+the prep then reads the table by 16-byte loads), a minimum of 1, 2, 3
+or 4 blocks an SM in `__launch_bounds__` (which caps ptxas at 65536 /
+(128 blocks) registers a thread; the committed kernels give no minimum),
+the prep's or both pair kernels' direct loads from the table in place of
+their shared-memory tile, and the tile's copies cached in L2 only
+(`cp.async.cg`).  For the G1 madd and add: their element before
+the carry chains (`mont::Fp`, with no minimum of blocks), or a minimum of
+1 or 2 blocks, or none, in place of the committed 3.  For the batch
+inversion (csrc/batch_inv.cu): other blocks of T threads of C lanes, and
+in degree 2 the norm recomputed in the down kernel in place of the one
+the up kernel stores.  For the wide NTT passes (csrc/ntt_wide.cu): radix
+4 or 16 in place of 8 (RADIX_LG stages a pass), radix 16 on 128 threads
+a block, and no minimum of blocks an SM or a minimum of 1 or 3 in place
+of the committed 2.  The point kernels' variants are built at n32 = 12
+only.  The script prints ptxas's registers and spills of each, and the
+static SASS instructions by class of each N = 12 point kernel and N = 8
+wide NTT kernel (`cuobjdump -sass`: IMAD, IMAD.MOV, IADD3, other integer,
+branch, memory, other), then each one's time by CUDA events at the main
+paths' shapes on random canonical words: the G2 add at 147,456 lanes
+(the G2 slab's fold), every lane taking the fast leg; the G2 pair prep
+and finish at level 1's 6,459,904 lanes through a table of 2^24 + 1
+rows (the G2 tree 2^23's) and a random row a side, 35% of the lanes
+reading the zero row as the tree's padding does (ZERO_PAIRS), the finish
+on the prep's flags, and both at level 2's 3,229,952 lanes on the even
+and odd lanes of a limb-major level (a parent build takes level 1's rows
+gathered, as its tree did); the G1 madd at 294,912 lanes through a table
+of 589,825 rows and a random slot index, and the G1 add at 294,912
+lanes, every lane on the fast leg; the batch inversion's three launches
+at the trees' level 1, 12,964,864 BLS12-381 Fp lanes and 6,459,904 Fp2
+lanes; the wide NTT's column pass at (8, 256, 262144), lg 8, and its row
+pass at (8, 256, 256, 1024), lg 10, out_t (the BLS12-381 Fr NTT 2^26's
+shapes).  Two rounds in opposite orders; each output equals the
+committed kernel's word for word.  The probes are one field op of each
+base-field element at N = 8 and 12 (mul, sqr, add, sub, and a copy for
+the loads and stores around it) in a kernel of its own, whose SASS
+counts give the instructions of one op.  The committed kernels' own
+registers are printed by chip_smoke.py.  Nothing of the port calls this
+module.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -70,6 +77,13 @@ from .ntt.parameters import get_parameters
 from .params import get_curve, get_field
 
 ADD_LANES, FINISH_LANES, MADD_LANES = 147_456, 6_459_904, 294_912
+#: the G2 tree 2^23's point table: 2 n + 1 rows, the last the zero row
+TABLE_ROWS = (2 << 23) + 1
+#: the shares of level-1 lanes with both slots padding (the zero row) and
+#: with the odd slot alone: the G2 tree 2^23's level 1 has 35% copy or
+#: zero lanes (PERF.md), nearly all (zero, zero), since a run's padding
+#: fills its end
+ZERO_PAIRS = (0.33, 0.02)
 INV_LANES = 12_964_864          # the G1 tree's level 1; G2's: FINISH_LANES
 #: the point kernels by their template's op number (csrc/ec_kernel.cuh)
 OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
@@ -102,15 +116,23 @@ def variants():
         "ec_xyzz, no minimum": ("ec_xyzz", [(MIN3, BOUNDS)]),
         **{f"ec_xyzz, {k} block{'s' * (k > 1)}": ("ec_xyzz", [
             (MIN3, f"__launch_bounds__(THREADS, {k})")]) for k in (1, 2)}}
-    for source, op in (("ec_fp2_add", "ADD"), ("ec_fp2_pair", "PAIR_FINISH")):
-        out[f"{source} one thread a lane"] = (source, [
-            (f"ec::dispatch<mont::Fp2Pair, ec::{op}>",
-             f"ec::dispatch<mont::Fp2, ec::{op}>")])
-        for k in (1, 3, 4):
+    for source, op in (("ec_fp2_add", "ADD"), ("ec_fp2_pair", "PAIR_FINISH"),
+                       ("ec_fp2_pair", "PAIR_PREP")):
+        what = " prep" if op == "PAIR_PREP" else ""
+        out[f"{source}{what} one thread a lane"] = (source, [
+            (f"ec::dispatch<mont::Fp2Pair, ec::{op}",
+             f"ec::dispatch<mont::Fp2, ec::{op}")])
+    for source in ("ec_fp2_add", "ec_fp2_pair"):
+        for k in (1, 2, 3, 4):
             out[f"{source}, {k} block{'s' * (k > 1)}"] = (source,
                                                           [_blocks(k)])
+    tile = "a.tile = TABLE && (OP == PAIR_PREP || OP == PAIR_FINISH) &&"
+    out["ec_fp2_pair prep direct loads"] = ("ec_fp2_pair", [
+        (tile, "a.tile = TABLE && OP == PAIR_FINISH &&")])
     out["ec_fp2_pair direct loads"] = ("ec_fp2_pair", [
-        ("a.rows = OP == PAIR_FINISH", "a.rows = false && OP")])
+        (tile, "a.tile = false && OP == PAIR_FINISH &&")])
+    out["ec_fp2_pair tile in L2 only"] = ("ec_fp2_pair", [
+        ("cp.async.ca.shared.global", "cp.async.cg.shared.global")])
     block = [(f"constexpr int {k} = {v};", f"constexpr int {k} = {{}};")
              for k, v in (("T", FK.INV_THREADS), ("C", FK.INV_CHUNK))]
     for t, c in ((32, 32), (64, 16), (64, 32), (128, 4), (128, 8),
@@ -137,23 +159,20 @@ def variants():
     return out
 
 
-def _make(name, source, subs):
-    """Write the variant's sources, the point kernels at N = 12 only;
-    returns (library, nvcc command).  A substitution (None, text) replaces
-    the whole source."""
+def _make(name, source, subs, csrc=None):
+    """Write the variant's sources, from csrc/ or the directory `csrc`
+    (a parent's), the point kernels at N = 12 only; returns (library,
+    nvcc command)."""
     d = _build.BUILD / "variants" / re.sub(r"\W+", "_", name)
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    files = [_build.CSRC / f"{source}.cu"] + sorted(
-        _build.CSRC.glob("*.cuh"))
+    csrc = Path(csrc) if csrc else _build.CSRC
+    files = [csrc / f"{source}.cu"] + sorted(csrc.glob("*.cuh"))
     text = {f.name: f.read_text() for f in files}
     text["ec_kernel.cuh"] = re.sub(
-        r"\n\s*case (2|8): launch<F<\1>, OP>\([^)]*\); break;", "",
+        r"\n\s*case (2|8): launch<F<\1>, OP[^>]*>\([^)]*\); break;", "",
         text["ec_kernel.cuh"])
     for old, new in subs:
-        if old is None:
-            text[f"{source}.cu"] = new
-            continue
         f = next((f for f, t in text.items() if old in t), None)
         if f is None:
             raise ValueError(f"{name}: {old!r} not found")
@@ -221,7 +240,7 @@ def sass_counts(lib):
     of a built library: the N = 12 point kernels, the N = 8 wide NTT
     kernels and the probes, NOPs left out."""
     tool = shutil.which("cuobjdump") or str(
-        __import__("pathlib").Path(_build.nvcc()).parent / "cuobjdump")
+        Path(_build.nvcc()).parent / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     out, name = {}, None
@@ -359,15 +378,19 @@ def main():
         print_sass(args[1:] or list(SASS_SOURCES), card)
         return 0
     every = variants()
+    parent = None
     if args[:1] == ["--parent"]:
-        every["ntt_wide parent"] = ("ntt_wide", [(None, open(args[1]).read())])
-        args = args[2:]
+        parent, args = args[1], args[2:]
     t0 = time.perf_counter()
     chosen = {name: v for name, v in every.items()
               if (args or [""])[0] in name
               and f"T {FK.INV_THREADS} C {FK.INV_CHUNK}" not in name}
+    if parent:
+        chosen.update({f"{s} parent": (s, []) for s in sorted(
+            {v[0] for v in chosen.values()})})
     _build.build({v[0] for v in chosen.values()} | {"bigmont"})
-    todo = {name: _make(name, *v) for name, v in chosen.items()}
+    todo = {name: _make(name, *v, parent if name.endswith(" parent")
+                        else None) for name, v in chosen.items()}
     procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
              for name, (_, cmd) in todo.items()}
@@ -395,14 +418,27 @@ def main():
     rng = np.random.default_rng(8)
     pt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
     qt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
-    rows = torch.cat([_fp2(p, n32, (2 * FINISH_LANES,), rng, dev),
-                      _fp2(p, n32, (2 * FINISH_LANES,), rng, dev)]).T
-    rows = rows.contiguous()            # (2 lanes, 2 W): level 0
+    # level 1 of the G2 tree: the point table and a random row a side, the
+    # padding as the tree lays it out (ZERO_PAIRS); level 0's rows
+    # gathered, for a parent, whose tree read them so
+    tab = torch.cat([_fp2(p, n32, (TABLE_ROWS,), rng, dev),
+                     _fp2(p, n32, (TABLE_ROWS,), rng, dev)]).T.contiguous()
+    tab[-1] = 0
+    table = (tab[:, :W].T, tab[:, W:].T)
+    idx = rng.integers(0, TABLE_ROWS - 1, size=(2, FINISH_LANES))
+    u = rng.random(FINISH_LANES)
+    idx[1, u < sum(ZERO_PAIRS)] = idx[0, u < ZERO_PAIRS[0]] = TABLE_ROWS - 1
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    rows = tab.index_select(0, idx.T.reshape(-1))      # (2 lanes, 2 W)
     l = (rows[0::2, :W].T, rows[0::2, W:].T)
     r = (rows[1::2, :W].T, rows[1::2, W:].T)
+    # level 2: the even and odd lanes of a limb-major level
+    X = _fp2(p, n32, (FINISH_LANES,), rng, dev)
+    Y = _fp2(p, n32, (FINISH_LANES,), rng, dev)
+    l2, r2 = (X[:, 0::2], Y[:, 0::2]), (X[:, 1::2], Y[:, 1::2])
     inv = _fp2(p, n32, (FINISH_LANES,), rng, dev)
-    flags = torch.full((FINISH_LANES,), EK.ACTIVE, dtype=torch.int32,
-                       device=dev)
+    flags = EK.affine_pair_prep("bls12_381_g2", table, table,
+                                (idx[0], idx[1]))[1]
     g1 = tuple(_words(p, n32, (MADD_LANES,), rng, dev) for _ in range(8))
     # the madd's points: a table of 2 MADD_LANES + 1 rows, a random row a lane
     g1_rows = torch.cat([_words(p, n32, (2 * MADD_LANES + 1,), rng, dev)
@@ -423,7 +459,13 @@ def main():
         twc, twr = pw.power_table(clg, True), pw.power_table(rlg, False)
     calls = {"ec_fp2_add": lambda: EK.xyzz_add("bls12_381_g2", pt, qt),
              "ec_fp2_pair": lambda: EK.affine_pair_finish(
-                 "bls12_381_g2", l, r, inv, flags),
+                 "bls12_381_g2", table, table, inv, flags, (idx[0], idx[1])),
+             "ec_fp2_pair_prep": lambda: EK.affine_pair_prep(
+                 "bls12_381_g2", table, table, (idx[0], idx[1])),
+             "ec_fp2_pair_prep_l2": lambda: EK.affine_pair_prep(
+                 "bls12_381_g2", l2, r2),
+             "ec_fp2_pair_l2": lambda: EK.affine_pair_finish(
+                 "bls12_381_g2", l2, r2, inv[:, 0::2], flags[0::2]),
              "ec_xyzz": lambda: EK.xyzz_madd("bls12_381", g1[:4], g1_table,
                                              g1_idx),
              "ec_xyzz_add": lambda: EK.xyzz_add("bls12_381", g1[:4],
@@ -435,10 +477,20 @@ def main():
              "ntt_wide_rows": lambda: [NK.wide_rows(WIDE_FIELD, xr, twr, rlg,
                                                     out_t=True)]}
 
-    # the second call of a source: batch_inv's in degree 2, ec_xyzz's add,
-    # ntt_wide's row pass
+    # a parent's calls where its kernels took other operands: level 1's
+    # gathered rows
+    parent_calls = {
+        "ec_fp2_pair": lambda: EK.affine_pair_finish("bls12_381_g2", l, r,
+                                                     inv, flags),
+        "ec_fp2_pair_prep": lambda: EK.affine_pair_prep("bls12_381_g2", l,
+                                                        r)}
+    # the other calls of a source: batch_inv's in degree 2, ec_xyzz's add,
+    # ntt_wide's row pass, ec_fp2_pair's prep at levels 1 and 2 and its
+    # finish at level 2
     twins = {"batch_inv_fp2": "batch_inv", "ec_xyzz_add": "ec_xyzz",
-             "ntt_wide_rows": "ntt_wide"}
+             "ntt_wide_rows": "ntt_wide", "ec_fp2_pair_prep": "ec_fp2_pair",
+             "ec_fp2_pair_prep_l2": "ec_fp2_pair",
+             "ec_fp2_pair_l2": "ec_fp2_pair"}
 
     def source_of(call):
         return twins.get(call, call)
@@ -464,19 +516,25 @@ def main():
             m = re.search(r"T (\d+) C (\d+)", name)
             FK.INV_THREADS, FK.INV_CHUNK = map(int, m.groups()) if m \
                 else block
+            fn = calls[call]
+            if name.endswith(" parent"):
+                fn = parent_calls.get(call, fn)
             try:
-                got = calls[call]()
+                got = fn()
                 torch.cuda.synchronize()
                 if not all(torch.equal(g, w)
                            for g, w in zip(got, want[call])):
                     raise RuntimeError(f"{name}: output differs from the "
                                        "committed kernel")
                 del got
-                times[name].append(_events_ms(calls[call]))
+                times[name].append(_events_ms(fn))
             finally:
                 _build._libs[source] = committed
                 FK.INV_THREADS, FK.INV_CHUNK = block
     shape_of = {"ec_fp2_add": ADD_LANES, "ec_fp2_pair": FINISH_LANES,
+                "ec_fp2_pair_prep": FINISH_LANES,
+                "ec_fp2_pair_prep_l2": FINISH_LANES // 2,
+                "ec_fp2_pair_l2": FINISH_LANES // 2,
                 "ec_xyzz": MADD_LANES, "ec_xyzz_add": MADD_LANES,
                 "batch_inv": INV_LANES,
                 "batch_inv_fp2": FINISH_LANES}

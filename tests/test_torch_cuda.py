@@ -779,12 +779,32 @@ def _pair_cases(curve, n, dev):
     return l, r
 
 
+def _pair_table(l, r):
+    """A point table holding l's lanes, then r's, then the zero row, and
+    the index pair that reads l and r back from it, as a tree's first
+    level reads the level-0 index."""
+    W, n = l[0].shape
+    rows = torch.cat([torch.cat(l).T, torch.cat(r).T,
+                      torch.zeros((1, 2 * W), dtype=torch.int32,
+                                  device=l[0].device)]).contiguous()
+    i = torch.arange(n, dtype=torch.int32, device=l[0].device)
+    return (rows[:, :W].T, rows[:, W:].T), (i, i + n)
+
+
+def _limb_major(l, r):
+    """l and r as the even and odd lanes of one limb-major level."""
+    W, n = l[0].shape
+    X = torch.stack([l[0], r[0]], -1).reshape(W, 2 * n)
+    Y = torch.stack([l[1], r[1]], -1).reshape(W, 2 * n)
+    return (X[:, 0::2], Y[:, 0::2]), (X[:, 1::2], Y[:, 1::2])
+
+
 @pytest.mark.parametrize("curve", MSM_CURVES + G2_CURVES)
 def test_pair_kernels_vs_plain(dev, curve):
     """ec_[fp2_]pair_prep and _finish against their plain versions with the
-    planted lanes and warps, on limb-major operands and on the even and
-    odd views that a tree level reads: point-major rows (level 0) and
-    every other lane of a limb-major level."""
+    planted lanes and warps, on limb-major operands and on the operands
+    that a tree level reads: the point table through the level-0 index
+    (level 1) and every other lane of a limb-major level."""
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ec.core import get_curve_ops
     from sppark_tpu_torch.ff import kernels as FK
@@ -795,38 +815,80 @@ def test_pair_kernels_vs_plain(dev, curve):
     den, flags = EK.affine_pair_prep_plain(curve, l, r)
     inv = batch_inv_flat(get_curve_ops(curve, FK.PLAIN).F, den)
     want = EK.affine_pair_finish_plain(curve, l, r, inv, flags)
-    rows = torch.stack([torch.cat(l).T, torch.cat(r).T], 1).reshape(2 * n,
-                                                                  2 * W)
-    X = torch.stack([l[0], r[0]], -1).reshape(W, 2 * n)
-    Y = torch.stack([l[1], r[1]], -1).reshape(W, 2 * n)
-    views = [(l, r),
-             ((rows[0::2, :W].T, rows[0::2, W:].T),
-              (rows[1::2, :W].T, rows[1::2, W:].T)),
-             ((X[:, 0::2], Y[:, 0::2]), (X[:, 1::2], Y[:, 1::2]))]
+    table, (il, ir) = _pair_table(l, r)
     name = EK.kernel_name("pair_prep", curve)
     counts = EK.launches if name in EK.launches else EK.fp2_launches
     before = counts[name]
-    for lv, rv in views:
-        for k in (slice(0, 32), slice(32, 64), slice(64, 96), slice(0, n)):
-            lk, rk = tuple(c[:, k] for c in lv), tuple(c[:, k] for c in rv)
-            got = EK.affine_pair_prep(curve, lk, rk)
+    for k in (slice(0, 32), slice(32, 64), slice(64, 96), slice(0, n)):
+        for lk, rk, ix in ((tuple(c[:, k] for c in l),
+                            tuple(c[:, k] for c in r), None),
+                           (table, table, (il[k], ir[k])),
+                           _limb_major(*(tuple(c[:, k] for c in t)
+                                         for t in (l, r))) + (None,)):
+            got = EK.affine_pair_prep(curve, lk, rk, ix)
             torch.cuda.synchronize()
             assert torch.equal(got[0], den[:, k])
             assert torch.equal(got[1], flags[k])
-            got = EK.affine_pair_finish(curve, lk, rk, inv[:, k], flags[k])
+            got = EK.affine_pair_finish(curve, lk, rk, inv[:, k], flags[k],
+                                        ix)
             torch.cuda.synchronize()
             assert all(torch.equal(g, w[:, k]) for g, w in zip(got, want))
     assert counts[name] == before + 12
     assert sorted(set(flags.tolist())) == [0, 1, 3, 4, 8]
 
 
+#: one curve of each width and degree: n32 = 2, 8, 12
+PAIR_WIDTHS = ["test_bm64", "pallas", "bls12_381", "test_bm64_g2", "bn254_g2",
+               "bls12_381_g2"]
+
+
+@pytest.mark.parametrize("curve", PAIR_WIDTHS)
+def test_indexed_pair_kernels_vs_plain(dev, curve):
+    """The pair kernels through a table and an index (random rows of a
+    point table with negated rows and the zero row, so every case of the
+    flag word) against their plain versions, exactly, at 1, 63, 64, 65
+    and 4097 lanes: the lane-pair kernels' tile ends inside a block, at
+    its end and one lane past it."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import slab
+    from sppark_tpu_torch.msm.tree import batch_inv_flat
+
+    ops = get_curve_ops(curve, FK.PLAIN)
+    l, _ = _pair_cases(curve, 96, dev)
+    rows = slab.point_rows(ops.F, *l)
+    W, m = l[0].shape[0], rows.shape[0]
+    table = (rows[:, :W].T, rows[:, W:].T)
+    g = np.random.default_rng(16)
+    idx = g.integers(0, m, size=(2, 4097))
+    # doubling, cancellation, infinity on each side and on both
+    idx[:, :5] = [[5, 7, m - 1, 9, m - 1], [5, 7 + m // 2, 3, m - 1, m - 1]]
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    for n in (1, 63, 64, 65, 4097):
+        ix = (idx[0, :n], idx[1, :n])
+        den, flags = EK.affine_pair_prep(curve, table, table, ix)
+        torch.cuda.synchronize()
+        want = EK.affine_pair_prep_plain(curve, table, table, ix)
+        assert torch.equal(den, want[0]) and torch.equal(flags, want[1]), n
+        inv = batch_inv_flat(ops.F, den)
+        got = EK.affine_pair_finish(curve, table, table, inv, flags, ix)
+        torch.cuda.synchronize()
+        want = EK.affine_pair_finish_plain(curve, table, table, inv, flags,
+                                           ix)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), n
+    assert sorted(set(flags.tolist())) == [0, 1, 3, 4, 8]
+
+
 @pytest.mark.parametrize("curve", G2_CURVES)
 def test_fp2_pair_finish_lane_pair_warps(dev, curve):
-    """The fp2 finish runs each pair on a lane pair, 16 lanes a warp:
-    warps of chords with exactly one tangent lane, one lane that copies r
-    (USE_R) or one that copies l (USE_L), and 1, 17 and 65 lanes, on
-    limb-major operands and on the even and odd point-major rows of a
-    tree's level 0, equal their plain versions word for word."""
+    """The fp2 prep and finish run each pair on a lane pair, 16 lanes a
+    warp: warps of chords with exactly one doubling pair, one cancelling
+    pair, one pair with l, r or both at infinity (the finish's copy and
+    zero lanes), and
+    1, 17 and 65 lanes, on limb-major operands, through the table and the
+    index, and on the even and odd lanes of a limb-major level, equal
+    their plain versions word for word."""
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ec.core import get_curve_ops
     from sppark_tpu_torch.ff import kernels as FK
@@ -835,33 +897,35 @@ def test_fp2_pair_finish_lane_pair_warps(dev, curve):
     l, r = _pair_cases(curve, 128, dev)
     den, flags = EK.affine_pair_prep_plain(curve, l, r)
     inv = batch_inv_flat(get_curve_ops(curve, FK.PLAIN).F, den)
-    specials = (33, 35, 36)
+    specials = (33, 34, 35, 36, 37)
     assert [int(flags[k]) for k in specials] == [
-        EK.ACTIVE | EK.DBL, EK.USE_R, EK.USE_L]
+        EK.ACTIVE | EK.DBL, 0, EK.USE_R, EK.USE_L, 0]
     assert bool((flags[:32] == EK.ACTIVE).all())
     for lanes in _lane_pair_warps(specials):
         lw, rw = (tuple(c[:, lanes] for c in t) for t in (l, r))
         args = (inv[:, lanes], flags[lanes])
+        dw = EK.affine_pair_prep_plain(curve, lw, rw)
         want = EK.affine_pair_finish_plain(curve, lw, rw, *args)
-        W, k = lw[0].shape
-        rows = torch.stack([torch.cat(lw).T, torch.cat(rw).T],
-                           1).reshape(2 * k, 2 * W)
-        for lv, rv in ((lw, rw),
-                       ((rows[0::2, :W].T, rows[0::2, W:].T),
-                        (rows[1::2, :W].T, rows[1::2, W:].T))):
-            got = EK.affine_pair_finish(curve, lv, rv, *args)
+        table, ix = _pair_table(lw, rw)
+        for lv, rv, i in ((lw, rw, None), (table, table, ix),
+                          _limb_major(lw, rw) + (None,)):
+            got = EK.affine_pair_prep(curve, lv, rv, i)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, dw)), lanes
+            got = EK.affine_pair_finish(curve, lv, rv, *args, i)
             torch.cuda.synchronize()
             assert all(torch.equal(g, w) for g, w in zip(got, want)), lanes
 
 
-@pytest.mark.parametrize("curve,n", [("bls12_381", 1 << 10),
-                                     ("bls12_381_g2", 1 << 8)])
+@pytest.mark.parametrize("curve,n", [("bls12_381", 1 << 12),
+                                     ("bls12_381_g2", 1 << 12)])
 def test_tree_msm_on_card(dev, curve, n):
     """mode="tree" through the entry point equals the slab MSM and
-    msm_naive on the same input (all-equal scalars too); the pair kernels,
-    the integrate's add and dbl and the Montgomery multiply launched, and
-    the batch inversion's three kernels once per level (one prep launch
-    each) and once for to_affine."""
+    msm_naive on the same input (all-equal scalars too; msm_naive over the
+    8 distinct points with each one's scalars summed mod r, the same
+    point); the pair kernels, the integrate's add and dbl and the
+    Montgomery multiply launched, and the batch inversion's three kernels
+    once per level (one prep launch each) and once for to_affine."""
     import random
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
@@ -878,6 +942,12 @@ def test_tree_msm_on_card(dev, curve, n):
     r = cp.scalar.modulus
     sc = [rng.randrange(r) for _ in range(n)]
     sc[0], sc[1], sc[4], sc[12] = 0, r - 1, 5, 5
+
+    def naive(scalars):
+        sums = [sum(k for i, k in enumerate(scalars)
+                    if i % 8 == j and i != 3) % r for j in range(8)]
+        return msm_naive(cp, base, sums)
+
     tree = MSMContext(curve, n, mode="tree")
     tree.set_points(pts)
     EK.reset_launches()
@@ -888,11 +958,11 @@ def test_tree_msm_on_card(dev, curve, n):
     pows = FK.launches["bigmont_pow"]
     invs = (FK.launches["bigmont_inv_up"], FK.launches["bigmont_inv_down"])
     assert got == MSMContext(curve, n).invoke(sc, points=pts)
-    assert got == msm_naive(cp, pts, sc)
+    assert got == naive(sc)
     assert sorted(counts) == sorted(EK.kernel_name(op, curve)
                                     for op in EK.TREE_OPS)
     assert FK.launches["bigmont_ew"] > 0
     assert pows == counts[EK.kernel_name("pair_prep", curve)] + 1
     assert invs == (pows, pows)
     k = rng.randrange(r)
-    assert tree.invoke([k] * n) == msm_naive(cp, pts, [k] * n)
+    assert tree.invoke([k] * n) == naive([k] * n)
