@@ -124,7 +124,11 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      inversion timed as the chain of bigmont_ew launches it replaced;
  20. holds the mont32 NTT kernels (mont32_ntt_rows, mont32_ntt_cols)
      against their plain versions on BabyBear with both generators, every
-     option, canonical words with 0, 1 and p - 1 planted, and at the shapes
+     option, canonical words with 0, 1 and p - 1 planted, at every lg (rows
+     1-13, columns 1-11: each split of the radix-16 passes), row counts
+     that are not a multiple of a block's rows (7), out_t with OB > 1 and B
+     = 5 (the store's general path) or 16 (runs of rows, at lg 12-13 across
+     a cluster), 2, 8 and 8192 columns, batched and not, and at the shapes
      the narrow main paths give them (the four-step at 2^20 and 2^24, the
      six-step at 2^26), exactly;
  21. drives BASELINE config 1, a BabyBear forward and inverse NTT of 2^20
@@ -144,8 +148,8 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      single-column LDE and the plain path;
  25. times config 1's pair, the NTT 2^24 (dependent chain), the LDE and
      the trace LDE with their parts, and each mont32 kernel alone at its 2^24
-     shapes beside its plain version and its bound, and prints the narrow
-     phases' seconds;
+     shapes beside its plain version, its bound and its registers and
+     spills, and prints the narrow phases' seconds;
  26. prints one JSON line of the numbers, one of the kernels, the run's
      seconds, the card's name and power limit, and last {"ok": true,
      "device": {...}}.
@@ -2122,16 +2126,16 @@ NARROW_FIELDS = ("baby_bear", "baby_bear_risc0")
 NARROW_CONFIG_LG = 20               # config 1: forward + inverse 2^20
 NARROW_LG, NARROW_BLOWUP = 24, 2    # the NTT 2^24 and the LDE 2^24 x 4
 TRACE_COLS, TRACE_LG = 64, 20       # a STARK prover's trace LDE, x 4
-NARROW_ROW_LGS = (1, 5, 10, 13)     # phase 20's row lengths,
-NARROW_COL_LGS = (1, 6, 11)         # column lengths
-NARROW_COL_COUNTS = (8, 8192)       # and column counts
+NARROW_ROW_LGS = tuple(range(1, 14))    # phase 20's row lengths,
+NARROW_COL_LGS = tuple(range(1, 12))    # column lengths
+NARROW_COL_COUNTS = (2, 8, 8192)        # and column counts
 NARROW_ORDER_LGS = (10, 16)         # the 16 configurations: one pass, four-step
 NARROW_ORACLE_LGS = (1, 12, 14)     # the big-int oracle
-# 32-bit integer operations counted from csrc/ntt_mont32.cu: a Montgomery
-# product (the low and high products of a and b, the low product lo * M0,
-# the high product of m and p, the carry test, a three-way add, a subtract,
-# a min: 9) and a butterfly's add and sub (three each)
-OPS_PER_MUL_MONT32 = 9
+# 32-bit integer operations counted from csrc/mont32.cuh: a signed
+# Montgomery product (the low and high products of a and b, the low
+# product lo * pinv, the high product of m and p, a subtract, an add and a
+# min: 7) and a butterfly's add and sub (three each)
+OPS_PER_MUL_MONT32 = 7
 OPS_ADD_SUB_MONT32 = 6
 WORD32 = 4
 
@@ -2151,9 +2155,30 @@ def narrow_words(field, rng, dev, *shape, planted=True):
     return torch.from_numpy(w.astype(np.int32)).to(dev)
 
 
-def narrow_phases(dev, card, rate):
-    """Phases 20-25.  Returns (the mont32 kernels' entries of the summary
-    line, the phases' numbers)."""
+def ptxas_summary(log):
+    """{kernel name: "R registers, S / L bytes spill stores / loads"} from
+    an nvcc -Xptxas -v build log."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(rows_kernel|"
+                      r"cols_kernel)", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if entry and m:
+            out[entry] = (f"{m.group(1)} / {m.group(2)} bytes spill stores "
+                          f"/ loads")
+        m = re.search(r"Used (\d+) registers", line)
+        if entry and m:
+            out[entry] = f"{m.group(1)} registers, " + out.get(entry, "")
+    return out
+
+
+def narrow_phases(dev, card, rate, build_log=""):
+    """Phases 20-25 (build_log: the ntt_mont32 build's, for the kernels'
+    registers).  Returns (the mont32 kernels' entries of the summary line,
+    the phases' numbers)."""
     import torch
     from sppark_tpu_torch import ntt
     from sppark_tpu_torch.ff.mont32 import get_mont32_ops
@@ -2193,7 +2218,8 @@ def narrow_phases(dev, card, rate):
         for lg in NARROW_ROW_LGS:
             tw = pm.power_table(lg, False)
             pairs = []
-            for shape in ((1, 1 << lg), (16, 1 << lg), (3, 16, 1 << lg)):
+            for shape in ((1, 1 << lg), (7, 1 << lg), (16, 1 << lg),
+                          (3, 5, 1 << lg), (3, 16, 1 << lg)):
                 x = narrow_words(field, rng, dev, *shape)
                 mul = narrow_words(field, rng, dev, *shape)
                 for in_rev in (False, True):
@@ -2204,7 +2230,7 @@ def narrow_phases(dev, card, rate):
                                 pairs.append((K.mont32_rows(field, *a),
                                               K.mont32_rows_plain(field, *a)))
             agree("mont32_ntt_rows", pairs, f"{field} lg {lg}, (1, n), "
-                  f"(16, n), (3, 16, n), every option")
+                  f"(7, n), (16, n), (3, 5, n), (3, 16, n), every option")
         for lg1 in NARROW_COL_LGS:
             tw = pm.power_table(lg1, True)
             pairs = []
@@ -2509,14 +2535,18 @@ def narrow_phases(dev, card, rate):
                        OPS_ADD_SUB_MONT32)),
     ]
     timing = {}
+    regs = ptxas_summary(build_log)
     for name, shape, kfn, pfn, nbytes, ops in cases:
         ms = median_ms(kfn, reps=20)
         pms = median_ms(pfn, reps=3)
         b, by = bound(nbytes, ops, rate)
         timing[name] = (ms, pms, b, by)
+        kern = name.split("_")[-1] + "_kernel"
         print(f"time {name} at {shape}: {ms:.4f} ms (median of 20; plain "
               f"{pms:.4f} ms, median of 3), bound {b:.4f} ms by {by}, "
-              f"{b / ms:.3f} of bound  [{card}]", flush=True)
+              f"{b / ms:.3f} of bound; "
+              f"{regs.get(kern, 'registers: not rebuilt in this run')}  "
+              f"[{card}]", flush=True)
     del xm, x, y
     seconds["25 times"] = time.perf_counter() - t0
     print("narrow phases' seconds: " + ", ".join(
@@ -2805,7 +2835,8 @@ def main():
         dev, card, rate, g1_input, g2_input, pow_err)
     del g1_input, g2_input
     torch.cuda.empty_cache()
-    narrow_entries, narrow_numbers = narrow_phases(dev, card, rate)
+    narrow_entries, narrow_numbers = narrow_phases(
+        dev, card, rate, info.get("ntt_mont32", {}).get("log", ""))
     # the Montgomery kernels run on all four MSM paths, whose counts were
     # read apart: the G1 and G2 slabs', then the two trees'; the point
     # kernels of the slabs' entries also run in the trees' integrate

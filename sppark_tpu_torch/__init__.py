@@ -15,8 +15,8 @@ It holds, each kernel beside its plain PyTorch version:
     pair kernels in csrc/ec_pair.cu and csrc/ec_fp2_pair.cu);
   * the 31-bit fields and their NTT and LDE (ff/mont32.py: BabyBear with
     both generators, Mersenne-31; ff/ext.py:BabyBear4Field; the mont32 row
-    and column NTT kernels in csrc/ntt_mont32.cu, one text with the
-    Goldilocks pair in csrc/ntt_narrow.cuh).
+    and column NTT kernels in csrc/ntt_mont32.cu: radix-16 passes in
+    registers, csrc/ntt_radix.cuh, over the policy of csrc/mont32.cuh).
 It imports torch and nothing of JAX or sppark_tpu.
 """
 

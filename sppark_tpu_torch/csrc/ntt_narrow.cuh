@@ -1,6 +1,7 @@
 // The narrow NTT kernels for Hopper (sm_90a), one text over a field policy:
-// Goldilocks (csrc/ntt_gl64.cu) and the 31-bit Montgomery fields
-// (csrc/ntt_mont32.cu) instantiate it.
+// Goldilocks (csrc/ntt_gl64.cu) instantiates it.  The 31-bit Montgomery
+// fields (csrc/ntt_mont32.cu) run the register-resident radix-16 kernels of
+// csrc/ntt_radix.cuh instead.
 //
 // rows_kernel<F> replaces sppark_tpu/ntt/pallas_kernels.py:_rows_kernel:
 //   batched NTTs along the last axis of (OB, B, n), n = 2^lg <= 2^13, with
@@ -18,16 +19,16 @@
 // [w^0 .. w^(n/2-1)] at index (j mod h) << (lg - s).
 //
 // A field policy F has a word type, ELEMS (the elements a block holds in
-// shared memory) and __device__ add, sub, mul and canon over words: lazy
-// for Goldilocks (any u64 representative), canonical for mont32.
+// shared memory) and __device__ add, sub, mul and canon over words (lazy
+// for Goldilocks: any u64 representative).
 //
 // What bounds them on the card: each element is read once and written once
 // (plus the mul block), so the floor is device-memory bytes unless the
 // butterflies' integer operations weigh more.  This first design keeps a
 // whole transform in shared memory, so HBM sees each element twice per
 // pass; it pays a __syncthreads() per stage and shared-memory traffic per
-// butterfly.  A register-resident radix-2^k design (the reference's
-// ct_mixed_radix_narrow.cu) is later work.  The column kernel takes C
+// butterfly.  csrc/ntt_radix.cuh is the register-resident radix-16
+// design (after the reference's ct_mixed_radix_narrow.cu).  The column kernel takes C
 // adjacent columns per block so every row read is C words contiguous; the
 // transposed row store writes rows_per_block words contiguous.
 //

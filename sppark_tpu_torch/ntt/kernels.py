@@ -5,7 +5,8 @@ sppark_tpu/ntt/pallas_kernels.py:_rows_kernel) and `ntt_cols` runs
 gl64_ntt_cols (the port of _cols_kernel).  The 31-bit Montgomery fields
 (BabyBear): `mont32_rows` and `mont32_cols` run csrc/ntt_mont32.cu's
 mont32_ntt_rows and mont32_ntt_cols, the same two kernels over one u32
-word per element (both sources instantiate csrc/ntt_narrow.cuh).  The
+word per element (csrc/ntt_radix.cuh: radix-16 passes in registers; the
+Goldilocks pair keeps csrc/ntt_narrow.cuh).  The
 wide (multi-limb Montgomery) fields: `wide_rows`, `wide_cols` and
 `wide_mid` run csrc/ntt_wide.cu's bigmont_ntt_rows, bigmont_ntt_cols (the
 two kernels' wide uses) and bigmont_ntt_mid (the port of

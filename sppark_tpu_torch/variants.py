@@ -1,6 +1,6 @@
 """Build variants of the point kernels, of the batch inversion and of the
-wide NTT's row and column passes, timed against the committed ones on one
-card and on the same data:
+wide and 31-bit NTTs' row and column passes, timed against the committed
+ones on one card and on the same data:
 
     python3 -m sppark_tpu_torch.variants [--parent DIR] [part of a name]
     python3 -m sppark_tpu_torch.variants --sass [source ...]
@@ -10,8 +10,9 @@ committed kernels they replace; with --parent, one more variant of each
 chosen source built from DIR, a copy of csrc/ at an earlier commit
 (`git archive REV sppark_tpu_torch/csrc | tar -x -C DIR0`, DIR =
 DIR0/sppark_tpu_torch/csrc); with --sass, no timing: ptxas's registers
-and the SASS counts of the committed N = 12 point kernels and N = 8 wide
-NTT kernels of the named sources, default all, and of the probes below)
+and the SASS counts of the committed N = 12 point kernels, N = 8 wide
+NTT kernels and mont32 NTT kernels of the named sources, default all, and
+of the probes below)
 
 Each variant is a scratch copy of csrc/ under build/variants/ (git-ignored)
 with one change to its text.  For the lane-pair fp2 add and pair kernels:
@@ -29,7 +30,14 @@ in degree 2 the norm recomputed in the down kernel in place of the one
 the up kernel stores.  For the wide NTT passes (csrc/ntt_wide.cu): radix
 4 or 16 in place of 8 (RADIX_LG stages a pass), radix 16 on 128 threads
 a block, and no minimum of blocks an SM or a minimum of 1 or 3 in place
-of the committed 2.  The point kernels' variants are built at n32 = 12
+of the committed 2.  For the 31-bit NTT passes (csrc/ntt_mont32.cu over
+csrc/ntt_radix.cuh): radix 8 or 32 in place of 16 (RADIX_LG), 4 rows a
+row block at lg 13 in place of 2 (ROW_TILE_LG 15: a 128 KiB tile, and
+clusters of 2), the transposed store by the block's runs of rows in
+place of a cluster's runs of 8, 256 threads a block in place of 512, no
+minimum of blocks an SM or a minimum of 1 or 3 in place of 2, and the
+parent's unsigned Montgomery product (nine operations) in place of the
+signed one (seven).  The point kernels' variants are built at n32 = 12
 only.  The script prints ptxas's registers and spills of each, and the
 static SASS instructions by class of each N = 12 point kernel and N = 8
 wide NTT kernel (`cuobjdump -sass`: IMAD, IMAD.MOV, IADD3, other integer,
@@ -47,7 +55,9 @@ lanes, every lane on the fast leg; the batch inversion's three launches
 at the trees' level 1, 12,964,864 BLS12-381 Fp lanes and 6,459,904 Fp2
 lanes; the wide NTT's column pass at (8, 256, 262144), lg 8, and its row
 pass at (8, 256, 256, 1024), lg 10, out_t (the BLS12-381 Fr NTT 2^26's
-shapes).  Two rounds in opposite orders; each output equals the
+shapes); the 31-bit column pass at (2048, 8192), lg 11, times the middle
+matrix, and its row pass at (2048, 8192), lg 13, out_t (the BabyBear NTT
+2^24's shapes).  Two rounds in opposite orders; each output equals the
 committed kernel's word for word.  The probes are one field op of each
 base-field element at N = 8 and 12 (mul, sqr, add, sub, and a copy for
 the loads and stores around it) in a kernel of its own, whose SASS
@@ -72,7 +82,7 @@ import torch
 from . import _build
 from .ec import kernels as EK
 from .ff import kernels as FK
-from .ntt import kernels as NK
+from .ntt import fused, kernels as NK
 from .ntt.parameters import get_parameters
 from .params import get_curve, get_field
 
@@ -94,13 +104,28 @@ MIN3 = "__launch_bounds__(THREADS, 3)"
 POINT_SOURCES = ("ec_xyzz", "ec_pair", "ec_fp2_madd", "ec_fp2_add",
                  "ec_fp2_dbl", "ec_fp2_pair")
 #: the sources whose kernels --sass and the variants' builds count
-SASS_SOURCES = POINT_SOURCES + ("ntt_wide",)
+SASS_SOURCES = POINT_SOURCES + ("ntt_wide", "ntt_mont32")
 #: the wide NTT's field and its passes' shapes on the NTT 2^26's path
 WIDE_FIELD = "bls12_381_fr"
 WIDE_COLS = ((8, 256, 262144), 8)
 WIDE_ROWS = ((8, 256, 256, 1024), 10)
-#: csrc/ntt_wide.cu's row and column kernels' bounds
+#: csrc/ntt_wide.cu's row and column kernels' bounds, and
+#: csrc/ntt_radix.cuh's
 WIDE_BOUNDS = "__launch_bounds__(THREADS, 2)"
+#: the 31-bit NTT's field and its passes' shapes on the NTT 2^24's path:
+#: (shape, lg) of the column pass (with the middle matrix) and the row pass
+#: (out_t)
+NARROW_FIELD, NARROW_LG = "baby_bear", 24
+NARROW_COLS = ((2048, 8192), 11)
+NARROW_ROWS = ((2048, 8192), 13)
+#: csrc/mont32.cuh's signed product, and the parent's unsigned one
+MONT32_MUL = ("const unsigned int m = lo * pinv;\n"
+              "        const unsigned int t = umulhi(a, b) - umulhi(m, p);\n"
+              "        return umin(t, t + p);")
+MONT32_MUL_UNSIGNED = (
+    "const unsigned int m = lo * (0u - pinv);\n"
+    "        const unsigned int t = umulhi(a, b) + umulhi(m, p) + (lo != 0);\n"
+    "        return umin(t, t - p);")
 
 
 def _blocks(k):
@@ -151,6 +176,24 @@ def variants():
     for k in (1, 3):
         out[f"ntt_wide, {k} block{'s' * (k > 1)}"] = ("ntt_wide", [
             (WIDE_BOUNDS, f"__launch_bounds__(THREADS, {k})")])
+    for k in (3, 5):
+        out[f"ntt_mont32 radix {1 << k}"] = ("ntt_mont32", [
+            ("constexpr int RADIX_LG = 4;",
+             f"constexpr int RADIX_LG = {k};")])
+    out["ntt_mont32 4 rows a block"] = ("ntt_mont32", [
+        ("constexpr int ROW_TILE_LG = 14;",
+         "constexpr int ROW_TILE_LG = 15;")])
+    out["ntt_mont32 rows without clusters"] = ("ntt_mont32", [
+        (": lgr < 3 && b % 8 == 0", ": false && b % 8 == 0")])
+    out["ntt_mont32 256 threads"] = ("ntt_mont32", [
+        ("constexpr int THREADS = 512;", "constexpr int THREADS = 256;")])
+    out["ntt_mont32, no minimum"] = ("ntt_mont32", [
+        (WIDE_BOUNDS, "__launch_bounds__(THREADS)")])
+    for k in (1, 3):
+        out[f"ntt_mont32, {k} block{'s' * (k > 1)}"] = ("ntt_mont32", [
+            (WIDE_BOUNDS, f"__launch_bounds__(THREADS, {k})")])
+    out["ntt_mont32 unsigned product"] = ("ntt_mont32", [
+        (MONT32_MUL, MONT32_MUL_UNSIGNED)])
     out["batch_inv norm recomputed"] = ("batch_inv", [
         ("            store<N>(dn, n, i, d);\n", ""),
         ("load<N>(DEG == 1 ? x : dn, n, i)",
@@ -185,18 +228,19 @@ def _make(name, source, subs, csrc=None):
 
 
 def _registers(log):
-    """ptxas's lines for the N = 12 point and inversion kernels and the
-    N = 8 wide NTT kernels of a build log."""
+    """ptxas's lines for the N = 12 point and inversion kernels, the N = 8
+    wide NTT kernels and the mont32 NTT kernels of a build log."""
     out, entry = [], None
     for line in log.splitlines():
         m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi12EEELi"
                       r"(\d)E", line)
         k = re.search(r"(inv_up|inv_down)ILi12ELi(\d)E", line)
-        w = re.search(r"(rows|cols|mid)_kernelILi8E", line)
+        w = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?Mont32)", line)
         if "Compiling entry function" in line:
             entry = (f"{m.group(1)}<12>,{OPS[int(m.group(2))]}" if m else
                      f"{k.group(1)}<12,{k.group(2)}>" if k else
-                     f"{w.group(1)}_kernel<8>" if w else None)
+                     f"{w.group(1)}_kernel<{_elem(w.group(2))}>" if w
+                     else None)
         elif entry and ("registers" in line or "spill" in line):
             out.append(f"{entry}: {line.strip()}")
     return out
@@ -222,15 +266,20 @@ def _sass_class(op):
     return "other"
 
 
+def _elem(arg):
+    """The element of an NTT kernel's mangled template argument."""
+    return "8" if arg == "Li8E" else "Mont32"
+
+
 def _sass_name(mangled):
-    """A short name for a point kernel or a probe at N = 12 or a wide NTT
-    kernel at N = 8, else None."""
+    """A short name for a point kernel or a probe at N = 12, a wide NTT
+    kernel at N = 8 or a mont32 NTT kernel, else None."""
     m = re.search(r"ec_kernelIN4mont\d+(\w+?)ILi12EEELi(\d)E", mangled)
     if m:
         return f"{m.group(1)}<12>,{OPS[int(m.group(2))]}"
-    m = re.search(r"(rows|cols|mid)_kernelILi8E", mangled)
+    m = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?Mont32)", mangled)
     if m:
-        return f"{m.group(1)}_kernel<8>"
+        return f"{m.group(1)}_kernel<{_elem(m.group(2))}>"
     m = re.fullmatch(r"probe_(\w+)", mangled)
     return m.group(1) if m else None
 
@@ -331,6 +380,8 @@ def _load(path, source):
         sigs = FK._INV_SIGNATURES
     if source == "ntt_wide":
         sigs = NK._WIDE_SIGNATURES
+    if source == "ntt_mont32":
+        sigs = NK._MONT32_SIGNATURES
     for fn, argtypes in sigs.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -416,40 +467,45 @@ def main():
     p, n32 = cp.field.modulus, cp.field.n_ref_limbs
     W = 2 * n32
     rng = np.random.default_rng(8)
-    pt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
-    qt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
-    # level 1 of the G2 tree: the point table and a random row a side, the
-    # padding as the tree lays it out (ZERO_PAIRS); level 0's rows
-    # gathered, for a parent, whose tree read them so
-    tab = torch.cat([_fp2(p, n32, (TABLE_ROWS,), rng, dev),
-                     _fp2(p, n32, (TABLE_ROWS,), rng, dev)]).T.contiguous()
-    tab[-1] = 0
-    table = (tab[:, :W].T, tab[:, W:].T)
-    idx = rng.integers(0, TABLE_ROWS - 1, size=(2, FINISH_LANES))
-    u = rng.random(FINISH_LANES)
-    idx[1, u < sum(ZERO_PAIRS)] = idx[0, u < ZERO_PAIRS[0]] = TABLE_ROWS - 1
-    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
-    rows = tab.index_select(0, idx.T.reshape(-1))      # (2 lanes, 2 W)
-    l = (rows[0::2, :W].T, rows[0::2, W:].T)
-    r = (rows[1::2, :W].T, rows[1::2, W:].T)
-    # level 2: the even and odd lanes of a limb-major level
-    X = _fp2(p, n32, (FINISH_LANES,), rng, dev)
-    Y = _fp2(p, n32, (FINISH_LANES,), rng, dev)
-    l2, r2 = (X[:, 0::2], Y[:, 0::2]), (X[:, 1::2], Y[:, 1::2])
-    inv = _fp2(p, n32, (FINISH_LANES,), rng, dev)
-    flags = EK.affine_pair_prep("bls12_381_g2", table, table,
-                                (idx[0], idx[1]))[1]
-    g1 = tuple(_words(p, n32, (MADD_LANES,), rng, dev) for _ in range(8))
-    # the madd's points: a table of 2 MADD_LANES + 1 rows, a random row a lane
-    g1_rows = torch.cat([_words(p, n32, (2 * MADD_LANES + 1,), rng, dev)
-                         for _ in range(2)]).T.contiguous()
-    g1_table = (g1_rows[:, :n32].T, g1_rows[:, n32:].T)
-    g1_idx = torch.from_numpy(rng.integers(
-        0, 2 * MADD_LANES + 1, size=MADD_LANES).astype(np.int32)).to(dev)
-    d1 = _words(p, n32, (INV_LANES,), rng, dev)
-    d2 = _fp2(p, n32, (FINISH_LANES,), rng, dev)
-    nr = cp.fp2.nr_small
     sources = {v[0] for v in chosen.values()}
+    if sources - {"ntt_wide", "ntt_mont32"}:
+        pt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
+        qt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
+        # level 1 of the G2 tree: the point table and a random row a side,
+        # the padding as the tree lays it out (ZERO_PAIRS); level 0's rows
+        # gathered, for a parent, whose tree read them so
+        tab = torch.cat([_fp2(p, n32, (TABLE_ROWS,), rng, dev),
+                         _fp2(p, n32, (TABLE_ROWS,), rng, dev)])
+        tab = tab.T.contiguous()
+        tab[-1] = 0
+        table = (tab[:, :W].T, tab[:, W:].T)
+        idx = rng.integers(0, TABLE_ROWS - 1, size=(2, FINISH_LANES))
+        u = rng.random(FINISH_LANES)
+        zero = TABLE_ROWS - 1
+        idx[1, u < sum(ZERO_PAIRS)] = idx[0, u < ZERO_PAIRS[0]] = zero
+        idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+        rows = tab.index_select(0, idx.T.reshape(-1))      # (2 lanes, 2 W)
+        l = (rows[0::2, :W].T, rows[0::2, W:].T)
+        r = (rows[1::2, :W].T, rows[1::2, W:].T)
+        # level 2: the even and odd lanes of a limb-major level
+        X = _fp2(p, n32, (FINISH_LANES,), rng, dev)
+        Y = _fp2(p, n32, (FINISH_LANES,), rng, dev)
+        l2, r2 = (X[:, 0::2], Y[:, 0::2]), (X[:, 1::2], Y[:, 1::2])
+        inv = _fp2(p, n32, (FINISH_LANES,), rng, dev)
+        flags = EK.affine_pair_prep("bls12_381_g2", table, table,
+                                    (idx[0], idx[1]))[1]
+        g1 = tuple(_words(p, n32, (MADD_LANES,), rng, dev)
+                   for _ in range(8))
+        # the madd's points: a table of 2 MADD_LANES + 1 rows, a random row
+        # a lane
+        g1_rows = torch.cat([_words(p, n32, (2 * MADD_LANES + 1,), rng, dev)
+                             for _ in range(2)]).T.contiguous()
+        g1_table = (g1_rows[:, :n32].T, g1_rows[:, n32:].T)
+        g1_idx = torch.from_numpy(rng.integers(
+            0, 2 * MADD_LANES + 1, size=MADD_LANES).astype(np.int32)).to(dev)
+        d1 = _words(p, n32, (INV_LANES,), rng, dev)
+        d2 = _fp2(p, n32, (FINISH_LANES,), rng, dev)
+        nr = cp.fp2.nr_small
     if "ntt_wide" in sources:
         pw = get_parameters(WIDE_FIELD, dev)
         fr = get_field(WIDE_FIELD)
@@ -457,6 +513,13 @@ def main():
         xc = _words(fr.modulus, fr.n_ref_limbs, cshape[1:], rng, dev)
         xr = _words(fr.modulus, fr.n_ref_limbs, rshape[1:], rng, dev)
         twc, twr = pw.power_table(clg, True), pw.power_table(rlg, False)
+    if "ntt_mont32" in sources:
+        fb = get_field(NARROW_FIELD)
+        (ncshape, nclg), (nrshape, nrlg) = NARROW_COLS, NARROW_ROWS
+        ntw1, nmid, ntw2 = fused.fused_tables(NARROW_FIELD, NARROW_LG, False,
+                                              dev)
+        nxc = _words(fb.modulus, 1, ncshape, rng, dev)[0]
+        nxr = _words(fb.modulus, 1, nrshape, rng, dev)[0]
     calls = {"ec_fp2_add": lambda: EK.xyzz_add("bls12_381_g2", pt, qt),
              "ec_fp2_pair": lambda: EK.affine_pair_finish(
                  "bls12_381_g2", table, table, inv, flags, (idx[0], idx[1])),
@@ -475,7 +538,11 @@ def main():
                                                          nr)],
              "ntt_wide": lambda: [NK.wide_cols(WIDE_FIELD, xc, twc, clg)],
              "ntt_wide_rows": lambda: [NK.wide_rows(WIDE_FIELD, xr, twr, rlg,
-                                                    out_t=True)]}
+                                                    out_t=True)],
+             "ntt_mont32": lambda: [NK.mont32_cols(NARROW_FIELD, nxc, ntw1,
+                                                   nclg, nmid)],
+             "ntt_mont32_rows": lambda: [NK.mont32_rows(
+                 NARROW_FIELD, nxr, ntw2, nrlg, out_t=True)]}
 
     # a parent's calls where its kernels took other operands: level 1's
     # gathered rows
@@ -485,10 +552,11 @@ def main():
         "ec_fp2_pair_prep": lambda: EK.affine_pair_prep("bls12_381_g2", l,
                                                         r)}
     # the other calls of a source: batch_inv's in degree 2, ec_xyzz's add,
-    # ntt_wide's row pass, ec_fp2_pair's prep at levels 1 and 2 and its
-    # finish at level 2
+    # ntt_wide's and ntt_mont32's row passes, ec_fp2_pair's prep at levels
+    # 1 and 2 and its finish at level 2
     twins = {"batch_inv_fp2": "batch_inv", "ec_xyzz_add": "ec_xyzz",
-             "ntt_wide_rows": "ntt_wide", "ec_fp2_pair_prep": "ec_fp2_pair",
+             "ntt_wide_rows": "ntt_wide", "ntt_mont32_rows": "ntt_mont32",
+             "ec_fp2_pair_prep": "ec_fp2_pair",
              "ec_fp2_pair_prep_l2": "ec_fp2_pair",
              "ec_fp2_pair_l2": "ec_fp2_pair"}
 
@@ -541,6 +609,10 @@ def main():
     shape_of = {k: f"{v} lanes" for k, v in shape_of.items()}
     shape_of["ntt_wide"] = f"{WIDE_COLS[0]}, lg {WIDE_COLS[1]}"
     shape_of["ntt_wide_rows"] = f"{WIDE_ROWS[0]}, lg {WIDE_ROWS[1]}, out_t"
+    shape_of["ntt_mont32"] = (f"{NARROW_COLS[0]}, lg {NARROW_COLS[1]}, "
+                              f"times the middle matrix")
+    shape_of["ntt_mont32_rows"] = (f"{NARROW_ROWS[0]}, lg {NARROW_ROWS[1]}, "
+                                   f"out_t")
     for name in runs:
         what = shape_of[re.match(r"\w+", name).group()]
         print(f"time {name} at {what}: " + " / ".join(

@@ -99,38 +99,51 @@ def _mont32_words(rng, dev, *shape):
     return torch.from_numpy(w.astype(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("field,lg", [("baby_bear", 1), ("baby_bear", 7),
-                                      ("baby_bear_risc0", 13)])
+@pytest.mark.parametrize("field", ["baby_bear", "baby_bear_risc0"])
+@pytest.mark.parametrize("lg", range(1, 14))
 def test_mont32_rows_kernel_vs_plain(dev, field, lg):
+    """Every lg, so every split of the radix passes; a row count that is
+    not a multiple of the rows a block holds (7, 37); out_t with OB > 1 and
+    B = 5, neither a power of two nor a multiple of a block's rows (the
+    store's general path) and B = 64 (its runs of rows)."""
     rng = np.random.default_rng(lg)
+    n = 1 << lg
     tw = get_parameters(field, dev).power_table(lg, False)
-    x = _mont32_words(rng, dev, 2, 5, 1 << lg)
-    mul = _mont32_words(rng, dev, 2, 5, 1 << lg)
+    shapes = [(2, 5, n), (7, n), (37, n), (3, 64, n)]
     before = K.narrow_launches["mont32_ntt_rows"]
-    for in_rev in (False, True):
-        for out_rev in (False, True):
-            for out_t in (False, True):
-                for m in ((None,) if out_rev else (None, mul)):
-                    args = (x, tw, lg, m, in_rev, out_rev, out_t)
-                    got = K.mont32_rows(field, *args)
-                    torch.cuda.synchronize()
-                    assert torch.equal(
-                        got, K.mont32_rows_plain(field, *args)), args[3:]
-    assert K.narrow_launches["mont32_ntt_rows"] == before + 12
+    for shape in shapes:
+        x = _mont32_words(rng, dev, *shape)
+        mul = _mont32_words(rng, dev, *shape)
+        for in_rev in (False, True):
+            for out_rev in (False, True):
+                for out_t in (False, True):
+                    for m in ((None,) if out_rev else (None, mul)):
+                        args = (x, tw, lg, m, in_rev, out_rev, out_t)
+                        got = K.mont32_rows(field, *args)
+                        torch.cuda.synchronize()
+                        assert torch.equal(
+                            got, K.mont32_rows_plain(field, *args)), \
+                            (shape, args[3] is not None, *args[4:])
+    assert K.narrow_launches["mont32_ntt_rows"] == before + 12 * len(shapes)
 
 
-@pytest.mark.parametrize("lg", [1, 6, 11])
-def test_mont32_cols_kernel_vs_plain(dev, lg):
+@pytest.mark.parametrize("field", ["baby_bear", "baby_bear_risc0"])
+@pytest.mark.parametrize("lg", range(1, 12))
+def test_mont32_cols_kernel_vs_plain(dev, field, lg):
+    """Every lg, column counts from 1 to 64 (fewer than a block's 8 or 16
+    columns included), batched and not, with and without the matrix."""
     rng = np.random.default_rng(lg)
-    tw = get_parameters("baby_bear", dev).power_table(lg, True)
-    x = _mont32_words(rng, dev, 3, 1 << lg, 64)
-    mid = _mont32_words(rng, dev, 1 << lg, 64)
-    for xx in (x, x[0].contiguous()):
-        for m in (None, mid):
-            got = K.mont32_cols("baby_bear", xx, tw, lg, m)
-            torch.cuda.synchronize()
-            assert torch.equal(got, K.mont32_cols_plain("baby_bear", xx, tw,
-                                                        lg, m))
+    tw = get_parameters(field, dev).power_table(lg, True)
+    for m_cols in (1, 2, 4, 8, 64):
+        x = _mont32_words(rng, dev, 3, 1 << lg, m_cols)
+        mid = _mont32_words(rng, dev, 1 << lg, m_cols)
+        for xx in (x, x[0].contiguous()):
+            for m in (None, mid):
+                got = K.mont32_cols(field, xx, tw, lg, m)
+                torch.cuda.synchronize()
+                assert torch.equal(got, K.mont32_cols_plain(field, xx, tw,
+                                                            lg, m)), \
+                    (m_cols, tuple(xx.shape), m is not None)
 
 
 def test_baby_bear_facade_on_card(dev):
