@@ -5,8 +5,15 @@
 Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
   1. prints the toolchain, the card, and the build time;
   2. holds each NTT kernel against its plain PyTorch version on the card,
-     at the listed shapes and options and at the shapes the main path gives
-     it: exact equality (integer field arithmetic, tolerance zero);
+     on any 64-bit input words (0, p - 1, p, p + 1 and 2^64 - 1 planted
+     in the input and the multiplier, and 2^64 - 1 in a whole warp's
+     lanes): the rows at every lg 1-13 over 1, 7, 16 and 37 rows and the
+     batches (2, 5, n), (3, 16, n) and (3, 64, n) (B = 5 takes the
+     transposed store's general path), every option; the columns at
+     every lg 1-13 over 1, 2, 4, 8, 64 and 8192 columns, batched and not,
+     with and without the middle matrix; and at the shapes the main path
+     gives them, the six-step's included: exact equality (integer field
+     arithmetic, tolerance zero);
   3. drives the main path, a Goldilocks forward NTT of 2^24 through the
      host-array entry point `ntt.ntt`, with the launch counts set to 0
      just before it and read just after; checks it against the plain path
@@ -16,7 +23,8 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      same way; checks it against the plain path on the card, the inverse
      round trip and the oracle at lg 10;
   5. times the NTT, the LDE and each NTT kernel alone at its 2^24 shapes
-     with CUDA events, beside the plain versions and the kernels' bounds;
+     with CUDA events, beside the plain versions, the kernels' bounds and
+     their registers and spills from the build log;
   6. holds the Montgomery multiply, the fixed-exponent power bigmont_pow
      (e = 0, 1, 2, p - 2, (p + 1) / 4 at 1, 31, 32, 33 and 2^16 lanes) and
      the three xyzz point kernels (the madd and add on the carry-chain
@@ -193,6 +201,12 @@ WORD = 8
 FIELD = "goldilocks"
 LG = 24
 LG_BLOWUP = 2
+GL64_ROW_LGS = tuple(range(1, 14))      # phase 2's row lengths,
+GL64_ROW_COUNTS = (1, 7, 16, 37)        # row counts,
+GL64_ROW_BATCHES = ((2, 5), (3, 16), (3, 64))   # (OB, B) batches,
+GL64_COL_LGS = tuple(range(1, 14))      # column lengths
+GL64_COL_COUNTS = (1, 2, 4, 8, 64, 8192)    # and column counts
+M64 = (1 << 64) - 1
 
 MSM_CURVE, MSM_LG = "bls12_381", 24      # BASELINE config 4
 PASTA_CURVE, PASTA_LG = "pallas", 20     # BASELINE config 3
@@ -2631,46 +2645,68 @@ def main():
         return gl64.from_wire(w, dev)
 
     def raw_words(*shape):
-        """Any 64-bit words, non-canonical ones included."""
+        """Any 64-bit words, non-canonical ones included: 0, p - 1, p,
+        p + 1 and 2^64 - 1 in the first lanes and 2^64 - 1 in a whole
+        warp's lanes (32-63)."""
         w = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+        flat = w.reshape(-1)
+        edges = [0, fp.modulus - 1, fp.modulus, fp.modulus + 1, M64]
+        flat[:len(edges)] = edges[:flat.size]
+        flat[32:64] = M64
         return gl64.from_wire(w, dev)
 
     errs = {"gl64_ntt_rows": 0, "gl64_ntt_cols": 0}
 
-    def same(name, got, want, what):
+    def same(name, got, want, what, quiet=False):
         torch.cuda.synchronize()
         e = max_abs_err(got, want)
         errs[name] = max(errs[name], e)
-        check(e == 0 and got.shape == want.shape, f"{name} == plain: {what}")
+        ok = e == 0 and got.shape == want.shape
+        if quiet and ok:
+            return
+        check(ok, f"{name} == plain: {what}")
 
     # -- 2. kernels vs plain ---------------------------------------------------
-    for lg in (1, 5, 10, 13):
+    t0 = time.perf_counter()
+    for lg in GL64_ROW_LGS:
         tw = pm.power_table(lg, False)
-        for shape in ((1, 1 << lg), (16, 1 << lg), (3, 16, 1 << lg)):
+        n_lg = 1 << lg
+        shapes = [(r, n_lg) for r in GL64_ROW_COUNTS] + [
+            (ob, b, n_lg) for ob, b in GL64_ROW_BATCHES]
+        cases = 0
+        for shape in shapes:
             x = raw_words(*shape)
             mul = raw_words(*shape)
             for in_rev in (False, True):
                 for out_rev in (False, True):
                     for out_t in (False, True):
-                        for m in (None, mul):
-                            if m is not None and out_rev:
-                                continue
+                        for m in ((None,) if out_rev else (None, mul)):
                             args = (x, tw, lg, m, in_rev, out_rev, out_t)
                             same("gl64_ntt_rows", K.ntt_rows(*args),
                                  K.ntt_rows_plain(*args),
                                  f"lg {lg} {shape} in_rev={in_rev} "
                                  f"out_rev={out_rev} out_t={out_t} "
-                                 f"mul={m is not None}")
-    for lg1 in (1, 6, 11):
+                                 f"mul={m is not None}", quiet=True)
+                            cases += 1
+        check(True, f"gl64_ntt_rows == plain: lg {lg}, {shapes}, every "
+                    f"option ({cases} cases)")
+    for lg1 in GL64_COL_LGS:
         tw = pm.power_table(lg1, True)
-        for m_cols in (8, 8192):
+        cases = 0
+        for m_cols in GL64_COL_COUNTS:
             mid = raw_words(1 << lg1, m_cols)
             for batch in ((), (3,)):
                 x = raw_words(*batch, 1 << lg1, m_cols)
                 for m in (None, mid):
                     same("gl64_ntt_cols", K.ntt_cols(x, tw, lg1, m),
                          K.ntt_cols_plain(x, tw, lg1, m),
-                         f"lg1 {lg1} {tuple(x.shape)} mul={m is not None}")
+                         f"lg1 {lg1} {tuple(x.shape)} mul={m is not None}",
+                         quiet=True)
+                    cases += 1
+            del x, mid
+        check(True, f"gl64_ntt_cols == plain: lg1 {lg1}, M in "
+                    f"{GL64_COL_COUNTS}, batch, middle matrix ({cases} "
+                    f"cases)")
 
     # the shapes the main path gives the kernels: the four-step at 2^24 and
     # the six-step at 2^26 (LDE), forward and inverse tables
@@ -2699,7 +2735,8 @@ def main():
              K.ntt_rows(xb, tables[4], lg2 - lg21, out_t=True),
              K.ntt_rows_plain(xb, tables[4], lg2 - lg21, out_t=True),
              f"main-path six-step rows lg {lg} batch {tuple(xb.shape)}")
-    del x, xb, mul, mid
+    del x, xb, mul
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 3. main path: forward NTT 2^24 through the host-array entry point --
     n = 1 << LG
@@ -2816,12 +2853,16 @@ def main():
     rows_bound, rows_by = bound(
         WORD * (2 * n + tw2.numel()),
         transform_ops(lg2, n >> lg2, OPS_PER_MUL, OPS_ADD_SUB), rate)
+    regs = ptxas_summary(info.get("ntt_gl64", {}).get("log", ""))
     for name, ms, pms, b, by in (
             ("gl64_ntt_cols", cols_ms, cols_plain_ms, cols_bound, cols_by),
             ("gl64_ntt_rows", rows_ms, rows_plain_ms, rows_bound, rows_by)):
+        kern = name.split("_")[-1] + "_kernel"
         print(f"time {name} at 2^{LG} shapes: {ms:.4f} ms (plain "
               f"{pms:.4f} ms, bound {b:.4f} ms by {by}, "
-              f"{b / ms:.3f} of bound)  [{card}]", flush=True)
+              f"{b / ms:.3f} of bound); "
+              f"{regs.get(kern, 'registers: not rebuilt in this run')}  "
+              f"[{card}]", flush=True)
 
     del xm, tables, main_shapes, state, x, y
     msm_entries, g1_input, g1_launches, pow_err = msm_phases(dev, card,

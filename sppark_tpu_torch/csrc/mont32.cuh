@@ -39,6 +39,19 @@ struct Mont32 {
     using word = unsigned int;
     unsigned int p, pinv;    // pinv = p^-1 mod 2^32 = -M0
 
+    // the kernels' shape (csrc/ntt_radix.cuh): radix 16 in 64 registers,
+    // two blocks of 512 threads an SM, 2^14-word tiles (2 rows at lg 13, 8
+    // columns at lg 11) with the whole twiddle table, 32-byte runs of 8
+    // rows in the transposed store
+    static constexpr int RADIX_LG = 4;
+    static constexpr int THREADS = 512;
+    static constexpr int ROW_MIN_BLOCKS = 2;
+    static constexpr int COL_MIN_BLOCKS = 2;
+    static constexpr int ROW_TILE_LG = 14;
+    static constexpr int COL_TILE_LG = 14;
+    static constexpr int RUN_LG = 3;
+    static constexpr int TW_GLOBAL = 0;
+
     M32_HD static unsigned int umulhi(unsigned int a, unsigned int b) {
 #ifdef __CUDA_ARCH__
         return __umulhi(a, b);
@@ -71,6 +84,9 @@ struct Mont32 {
         const unsigned int t = umulhi(a, b) - umulhi(m, p);
         return umin(t, t + p);
     }
+
+    // every op is canonical already
+    M32_HD unsigned int canon(unsigned int a) const { return a; }
 };
 
 }  // namespace narrow

@@ -4,13 +4,13 @@ Goldilocks: `ntt_rows` runs csrc/ntt_gl64.cu:gl64_ntt_rows (the port of
 sppark_tpu/ntt/pallas_kernels.py:_rows_kernel) and `ntt_cols` runs
 gl64_ntt_cols (the port of _cols_kernel).  The 31-bit Montgomery fields
 (BabyBear): `mont32_rows` and `mont32_cols` run csrc/ntt_mont32.cu's
-mont32_ntt_rows and mont32_ntt_cols, the same two kernels over one u32
-word per element (csrc/ntt_radix.cuh: radix-16 passes in registers; the
-Goldilocks pair keeps csrc/ntt_narrow.cuh).  The
-wide (multi-limb Montgomery) fields: `wide_rows`, `wide_cols` and
-`wide_mid` run csrc/ntt_wide.cu's bigmont_ntt_rows, bigmont_ntt_cols (the
-two kernels' wide uses) and bigmont_ntt_mid (the port of
-_mid_factored_kernel).  On a CUDA tensor a wrapper launches its kernel on
+mont32_ntt_rows and mont32_ntt_cols.  Both pairs are one text,
+csrc/ntt_radix.cuh (radix-16 passes in registers), over a field policy:
+csrc/gl64.cuh's lazy Goldilocks word (any u64 in, canonical out) and
+csrc/mont32.cuh's u32 Montgomery word.  The wide (multi-limb Montgomery)
+fields: `wide_rows`, `wide_cols` and `wide_mid` run csrc/ntt_wide.cu's
+bigmont_ntt_rows, bigmont_ntt_cols (the two kernels' wide uses) and
+bigmont_ntt_mid (the port of _mid_factored_kernel).  On a CUDA tensor a wrapper launches its kernel on
 the current stream or raises; on a CPU tensor it computes the same
 function with the plain version.  Each launch adds one to its count:
 `launches[name]` for the Goldilocks kernels, `narrow_launches[name]` for
@@ -41,8 +41,9 @@ from ..params import get_field
 from ..util.errors import SpparkError
 from .core import Mont32Ops, bit_reverse, ct_stages, elem_ops
 
-#: longest transform one kernel pass takes: a 2^13 row of u64 is the 64 KiB
-#: of shared memory a block holds (the mont32 kernels take the same cap)
+#: longest transform one Goldilocks or mont32 kernel pass takes
+#: (csrc/ntt_radix.cuh:LG_MAX): a 2^13 row of u64 is a Goldilocks block's
+#: 64 KiB tile
 LG_MAX = 13
 #: the same for the wide kernels: 2^11 elements of 8 words are 64 KiB
 LG_MAX_WIDE = 11

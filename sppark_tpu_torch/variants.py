@@ -1,6 +1,6 @@
 """Build variants of the point kernels, of the batch inversion and of the
-wide and 31-bit NTTs' row and column passes, timed against the committed
-ones on one card and on the same data:
+wide, 31-bit and Goldilocks NTTs' row and column passes, timed against
+the committed ones on one card and on the same data:
 
     python3 -m sppark_tpu_torch.variants [--parent DIR] [part of a name]
     python3 -m sppark_tpu_torch.variants --sass [source ...]
@@ -11,8 +11,8 @@ chosen source built from DIR, a copy of csrc/ at an earlier commit
 (`git archive REV sppark_tpu_torch/csrc | tar -x -C DIR0`, DIR =
 DIR0/sppark_tpu_torch/csrc); with --sass, no timing: ptxas's registers
 and the SASS counts of the committed N = 12 point kernels, N = 8 wide
-NTT kernels and mont32 NTT kernels of the named sources, default all, and
-of the probes below)
+NTT kernels and mont32 and Goldilocks NTT kernels of the named sources,
+default all, and of the probes below)
 
 Each variant is a scratch copy of csrc/ under build/variants/ (git-ignored)
 with one change to its text.  For the lane-pair fp2 add and pair kernels:
@@ -30,40 +30,58 @@ in degree 2 the norm recomputed in the down kernel in place of the one
 the up kernel stores.  For the wide NTT passes (csrc/ntt_wide.cu): radix
 4 or 16 in place of 8 (RADIX_LG stages a pass), radix 16 on 128 threads
 a block, and no minimum of blocks an SM or a minimum of 1 or 3 in place
-of the committed 2.  For the 31-bit NTT passes (csrc/ntt_mont32.cu over
-csrc/ntt_radix.cuh): radix 8 or 32 in place of 16 (RADIX_LG), 4 rows a
-row block at lg 13 in place of 2 (ROW_TILE_LG 15: a 128 KiB tile, and
-clusters of 2), the transposed store by the block's runs of rows in
-place of a cluster's runs of 8, 256 threads a block in place of 512, no
-minimum of blocks an SM or a minimum of 1 or 3 in place of 2, and the
-parent's unsigned Montgomery product (nine operations) in place of the
-signed one (seven).  The point kernels' variants are built at n32 = 12
-only.  The script prints ptxas's registers and spills of each, and the
-static SASS instructions by class of each N = 12 point kernel and N = 8
-wide NTT kernel (`cuobjdump -sass`: IMAD, IMAD.MOV, IADD3, other integer,
-branch, memory, other), then each one's time by CUDA events at the main
-paths' shapes on random canonical words: the G2 add at 147,456 lanes
-(the G2 slab's fold), every lane taking the fast leg; the G2 pair prep
-and finish at level 1's 6,459,904 lanes through a table of 2^24 + 1
-rows (the G2 tree 2^23's) and a random row a side, 35% of the lanes
-reading the zero row as the tree's padding does (ZERO_PAIRS), the finish
-on the prep's flags, and both at level 2's 3,229,952 lanes on the even
-and odd lanes of a limb-major level (a parent build takes level 1's rows
-gathered, as its tree did); the G1 madd at 294,912 lanes through a table
-of 589,825 rows and a random slot index, and the G1 add at 294,912
+of the committed 2.  The 31-bit and Goldilocks NTT passes are one text,
+csrc/ntt_radix.cuh, whose shape each policy states (csrc/mont32.cuh,
+csrc/gl64.cuh), so their variants change the policy's constants.  For
+the 31-bit passes (csrc/ntt_mont32.cu): radix 8 or 32 in place of 16
+(RADIX_LG), 4 rows a row block at lg 13 in place of 2 (ROW_TILE_LG 15: a
+128 KiB tile, and clusters of 2), the transposed store by the block's
+runs of rows in place of a cluster's runs of 8, 256 threads a block in
+place of 512, no minimum of blocks an SM or a minimum of 1 or 3 in place
+of 2, and the parent's unsigned Montgomery product (nine operations) in
+place of the signed one (seven).  For the Goldilocks passes
+(csrc/ntt_gl64.cu; committed: radix 16, 256 threads, 3 row blocks and 2
+column blocks an SM, the last pass's three stages' twiddles from device
+memory, 4 columns a column block at lg 11, 32-byte runs of 4 rows
+through a cluster at lg 12-13, the ops on carry chains): radix 8; 512
+threads with 1 block an SM; 2 row blocks; 3 column blocks; one stage's
+twiddles from device memory, with 3 row blocks (2 fit by shared memory)
+or 2; the full stage-major twiddle table in shared memory (128 KiB at lg
+13: 1 block an SM); 8 columns a column block (COL_TILE_LG 14: 1 block an
+SM); 64-byte runs of 8 rows (clusters of 8 at lg 13); the transposed
+store by the block's runs of rows in place of a cluster's; the parent's
+64-bit C++ ops (sums, compares and selects).  Each Goldilocks variant
+is also timed with its row pass in natural order (no out_t) and through
+the entry points, the NTT 2^24 (`ntt.base_dev`) and the LDE 2^24 x4
+(`ntt.lde_dev`), on its library.
+The point kernels' variants are built at n32 = 12 only.  The script
+prints ptxas's registers and spills of each, and the static SASS
+instructions by class of each N = 12 point kernel, N = 8 wide NTT kernel
+and mont32 and Goldilocks NTT kernel (`cuobjdump -sass`: IMAD, IMAD.MOV,
+IADD3, other integer, branch, memory, other), then each one's time by
+CUDA events at the main paths' shapes on random words: the G2 add at
+147,456 lanes (the G2 slab's fold), every lane taking the fast leg; the
+G2 pair prep and finish at level 1's 6,459,904 lanes through a table of
+2^24 + 1 rows (the G2 tree 2^23's) and a random row a side, 35% of the
+lanes reading the zero row as the tree's padding does (ZERO_PAIRS), the
+finish on the prep's flags, and both at level 2's 3,229,952 lanes on the
+even and odd lanes of a limb-major level (a parent build takes level 1's
+rows gathered, as its tree did); the G1 madd at 294,912 lanes through a
+table of 589,825 rows and a random slot index, and the G1 add at 294,912
 lanes, every lane on the fast leg; the batch inversion's three launches
 at the trees' level 1, 12,964,864 BLS12-381 Fp lanes and 6,459,904 Fp2
 lanes; the wide NTT's column pass at (8, 256, 262144), lg 8, and its row
 pass at (8, 256, 256, 1024), lg 10, out_t (the BLS12-381 Fr NTT 2^26's
-shapes); the 31-bit column pass at (2048, 8192), lg 11, times the middle
-matrix, and its row pass at (2048, 8192), lg 13, out_t (the BabyBear NTT
-2^24's shapes).  Two rounds in opposite orders; each output equals the
-committed kernel's word for word.  The probes are one field op of each
-base-field element at N = 8 and 12 (mul, sqr, add, sub, and a copy for
-the loads and stores around it) in a kernel of its own, whose SASS
-counts give the instructions of one op.  The committed kernels' own
-registers are printed by chip_smoke.py.  Nothing of the port calls this
-module.
+shapes); the 31-bit and the Goldilocks column passes at (2048, 8192), lg
+11, times the middle matrix, and their row passes at (2048, 8192), lg
+13, out_t (the NTT 2^24's shapes; Goldilocks on any 64-bit words).  Two
+rounds in opposite orders; each output equals the committed kernel's
+word for word.  The probes are one field op of each base-field element
+at N = 8 and 12 (mul, sqr, add, sub, and a copy for the loads and stores
+around it) and one Goldilocks op (mul, add, sub, canon, and a copy) in a
+kernel of its own, whose SASS counts give the instructions of one op.
+The committed kernels' own registers are printed by chip_smoke.py.
+Nothing of the port calls this module.
 """
 
 from __future__ import annotations
@@ -79,8 +97,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, ntt
 from .ec import kernels as EK
+from .ff import gl64 as G64
 from .ff import kernels as FK
 from .ntt import fused, kernels as NK
 from .ntt.parameters import get_parameters
@@ -104,13 +123,12 @@ MIN3 = "__launch_bounds__(THREADS, 3)"
 POINT_SOURCES = ("ec_xyzz", "ec_pair", "ec_fp2_madd", "ec_fp2_add",
                  "ec_fp2_dbl", "ec_fp2_pair")
 #: the sources whose kernels --sass and the variants' builds count
-SASS_SOURCES = POINT_SOURCES + ("ntt_wide", "ntt_mont32")
+SASS_SOURCES = POINT_SOURCES + ("ntt_wide", "ntt_mont32", "ntt_gl64")
 #: the wide NTT's field and its passes' shapes on the NTT 2^26's path
 WIDE_FIELD = "bls12_381_fr"
 WIDE_COLS = ((8, 256, 262144), 8)
 WIDE_ROWS = ((8, 256, 256, 1024), 10)
-#: csrc/ntt_wide.cu's row and column kernels' bounds, and
-#: csrc/ntt_radix.cuh's
+#: csrc/ntt_wide.cu's row and column kernels' bounds
 WIDE_BOUNDS = "__launch_bounds__(THREADS, 2)"
 #: the 31-bit NTT's field and its passes' shapes on the NTT 2^24's path:
 #: (shape, lg) of the column pass (with the middle matrix) and the row pass
@@ -118,6 +136,52 @@ WIDE_BOUNDS = "__launch_bounds__(THREADS, 2)"
 NARROW_FIELD, NARROW_LG = "baby_bear", 24
 NARROW_COLS = ((2048, 8192), 11)
 NARROW_ROWS = ((2048, 8192), 13)
+#: the transposed store by a block's runs of rows in place of a cluster's
+NO_CLUSTERS = (": lgr < RL && b % (1 << RL) == 0",
+               ": false && b % (1 << RL) == 0")
+#: the Goldilocks NTT 2^24's passes (the same shapes, int64 words)
+GL64_FIELD, GL64_LG, GL64_BLOWUP = "goldilocks", 24, 2
+#: the parent's Goldilocks ops: 64-bit C++ sums, compares and selects, in
+#: place of csrc/gl64.cuh's carry chains
+GL64_OPS_CXX = """    GL64_HD word add(word a, word b) const {
+        word s = a + b;
+        word m = s < a ? 0xFFFFFFFFull : 0;
+        s += m;
+        return s + (s < m ? 0xFFFFFFFFull : 0);
+    }
+
+    GL64_HD word sub(word a, word b) const {
+        word d = a - b;
+        word m = a < b ? 0xFFFFFFFFull : 0;
+        word d2 = d - m;
+        return d2 - (d < m ? 0xFFFFFFFFull : 0);
+    }
+
+    GL64_HD word mul(word a, word b) const {
+        word lo = a * b;
+#ifdef __CUDA_ARCH__
+        word hi = __umul64hi(a, b);
+#else
+        word hi = (word)(((unsigned __int128)a * b) >> 64);
+#endif
+        word w3 = hi >> 32, w2 = hi & 0xFFFFFFFFull;
+        word r = lo - w3;
+        r -= lo < w3 ? 0xFFFFFFFFull : 0;
+        word u = (w2 << 32) - w2;
+        word s = r + u;
+        return s + (s < u ? 0xFFFFFFFFull : 0);
+    }
+
+"""
+
+
+def _gl64_ops():
+    """csrc/gl64.cuh's add, sub and mul, as they stand."""
+    text = (_build.CSRC / "gl64.cuh").read_text()
+    return text[text.index("    GL64_HD word add("):
+                text.index("    GL64_HD word canon(")]
+
+
 #: csrc/mont32.cuh's signed product, and the parent's unsigned one
 MONT32_MUL = ("const unsigned int m = lo * pinv;\n"
               "        const unsigned int t = umulhi(a, b) - umulhi(m, p);\n"
@@ -126,6 +190,13 @@ MONT32_MUL_UNSIGNED = (
     "const unsigned int m = lo * (0u - pinv);\n"
     "        const unsigned int t = umulhi(a, b) + umulhi(m, p) + (lo != 0);\n"
     "        return umin(t, t - p);")
+
+
+def _shape(policy, name, old, new):
+    """A substitution of one of csrc/<policy>.cuh's kernel shape constants
+    (csrc/ntt_radix.cuh reads them from the policy)."""
+    return (f"{policy}.cuh", f"static constexpr int {name} = {old};",
+            f"static constexpr int {name} = {new};")
 
 
 def _blocks(k):
@@ -178,22 +249,38 @@ def variants():
             (WIDE_BOUNDS, f"__launch_bounds__(THREADS, {k})")])
     for k in (3, 5):
         out[f"ntt_mont32 radix {1 << k}"] = ("ntt_mont32", [
-            ("constexpr int RADIX_LG = 4;",
-             f"constexpr int RADIX_LG = {k};")])
+            _shape("mont32", "RADIX_LG", 4, k)])
     out["ntt_mont32 4 rows a block"] = ("ntt_mont32", [
-        ("constexpr int ROW_TILE_LG = 14;",
-         "constexpr int ROW_TILE_LG = 15;")])
-    out["ntt_mont32 rows without clusters"] = ("ntt_mont32", [
-        (": lgr < 3 && b % 8 == 0", ": false && b % 8 == 0")])
+        _shape("mont32", "ROW_TILE_LG", 14, 15)])
+    out["ntt_mont32 rows without clusters"] = ("ntt_mont32", [NO_CLUSTERS])
     out["ntt_mont32 256 threads"] = ("ntt_mont32", [
-        ("constexpr int THREADS = 512;", "constexpr int THREADS = 256;")])
+        _shape("mont32", "THREADS", 512, 256)])
     out["ntt_mont32, no minimum"] = ("ntt_mont32", [
-        (WIDE_BOUNDS, "__launch_bounds__(THREADS)")])
+        (f"__launch_bounds__(F::THREADS, F::{k}_MIN_BLOCKS)",
+         "__launch_bounds__(F::THREADS)") for k in ("ROW", "COL")])
     for k in (1, 3):
         out[f"ntt_mont32, {k} block{'s' * (k > 1)}"] = ("ntt_mont32", [
-            (WIDE_BOUNDS, f"__launch_bounds__(THREADS, {k})")])
+            _shape("mont32", f"{w}_MIN_BLOCKS", 2, k) for w in ("ROW", "COL")])
     out["ntt_mont32 unsigned product"] = ("ntt_mont32", [
         (MONT32_MUL, MONT32_MUL_UNSIGNED)])
+    gl64 = {"radix 8": [("RADIX_LG", 4, 3)],
+            "512 threads, 1 block": [("THREADS", 256, 512),
+                                     ("ROW_MIN_BLOCKS", 3, 1),
+                                     ("COL_MIN_BLOCKS", 2, 1)],
+            "2 row blocks": [("ROW_MIN_BLOCKS", 3, 2)],
+            "3 column blocks": [("COL_MIN_BLOCKS", 2, 3)],
+            "1 global stage": [("TW_GLOBAL", 3, 1)],
+            "1 global stage, 2 row blocks": [("TW_GLOBAL", 3, 1),
+                                             ("ROW_MIN_BLOCKS", 3, 2)],
+            "full twiddle table": [("TW_GLOBAL", 3, 0)],
+            "8 columns a block": [("COL_TILE_LG", 13, 14)],
+            "64-byte runs": [("RUN_LG", 2, 3)]}
+    for what, subs in gl64.items():
+        out[f"ntt_gl64 {what}"] = ("ntt_gl64", [
+            _shape("gl64", *s) for s in subs])
+    out["ntt_gl64 rows without clusters"] = ("ntt_gl64", [NO_CLUSTERS])
+    out["ntt_gl64 64-bit C++ ops"] = ("ntt_gl64", [
+        ("gl64.cuh", _gl64_ops(), GL64_OPS_CXX)])
     out["batch_inv norm recomputed"] = ("batch_inv", [
         ("            store<N>(dn, n, i, d);\n", ""),
         ("load<N>(DEG == 1 ? x : dn, n, i)",
@@ -204,8 +291,9 @@ def variants():
 
 def _make(name, source, subs, csrc=None):
     """Write the variant's sources, from csrc/ or the directory `csrc`
-    (a parent's), the point kernels at N = 12 only; returns (library,
-    nvcc command)."""
+    (a parent's), the point kernels at N = 12 only; each substitution is
+    (old, new), in the first file that holds old, or (file, old, new);
+    returns (library, nvcc command)."""
     d = _build.BUILD / "variants" / re.sub(r"\W+", "_", name)
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -215,9 +303,11 @@ def _make(name, source, subs, csrc=None):
     text["ec_kernel.cuh"] = re.sub(
         r"\n\s*case (2|8): launch<F<\1>, OP[^>]*>\([^)]*\); break;", "",
         text["ec_kernel.cuh"])
-    for old, new in subs:
-        f = next((f for f, t in text.items() if old in t), None)
-        if f is None:
+    for sub in subs:
+        old, new = sub[-2:]
+        f = sub[0] if len(sub) == 3 else next(
+            (f for f, t in text.items() if old in t), None)
+        if f is None or old not in text[f]:
             raise ValueError(f"{name}: {old!r} not found")
         text[f] = text[f].replace(old, new)
     for f, t in text.items():
@@ -235,7 +325,8 @@ def _registers(log):
         m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi12EEELi"
                       r"(\d)E", line)
         k = re.search(r"(inv_up|inv_down)ILi12ELi(\d)E", line)
-        w = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?Mont32)", line)
+        w = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?(?:Mont32|Gl64))",
+                      line)
         if "Compiling entry function" in line:
             entry = (f"{m.group(1)}<12>,{OPS[int(m.group(2))]}" if m else
                      f"{k.group(1)}<12,{k.group(2)}>" if k else
@@ -268,7 +359,8 @@ def _sass_class(op):
 
 def _elem(arg):
     """The element of an NTT kernel's mangled template argument."""
-    return "8" if arg == "Li8E" else "Mont32"
+    return "8" if arg == "Li8E" else "Gl64" if arg.endswith("Gl64") \
+        else "Mont32"
 
 
 def _sass_name(mangled):
@@ -277,7 +369,8 @@ def _sass_name(mangled):
     m = re.search(r"ec_kernelIN4mont\d+(\w+?)ILi12EEELi(\d)E", mangled)
     if m:
         return f"{m.group(1)}<12>,{OPS[int(m.group(2))]}"
-    m = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?Mont32)", mangled)
+    m = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?(?:Mont32|Gl64))",
+                  mangled)
     if m:
         return f"{m.group(1)}_kernel<{_elem(m.group(2))}>"
     m = re.fullmatch(r"probe_(\w+)", mangled)
@@ -319,6 +412,11 @@ PROBE_OPS = {"copy": "a", "mul": "mul(a, b, c)", "sqr": "sqr(a, c)",
              "add": "add(a, b, c)", "sub": "sub(a, b, c)"}
 
 
+#: one Goldilocks op alone, between two word loads and one store
+GL64_PROBE_OPS = {"copy": "a", "mul": "f.mul(a, b)", "add": "f.add(a, b)",
+                  "sub": "f.sub(a, b)", "canon": "f.canon(a)"}
+
+
 def _probe():
     """Build the probes of every base-field element the headers define, at
     N = 8 and 12; returns the library."""
@@ -346,6 +444,18 @@ def _probe():
         for n in (8, 12):
             for op, expr in PROBE_OPS.items():
                 text += f"PROBE(mont::{e}, {n}, {e}{n}_{op}, {expr})\n"
+    text += '#include "gl64.cuh"\n' + """
+#define GL64_PROBE(NAME, EXPR)                                             \\
+    extern "C" __global__ void probe_gl64_##NAME(                          \\
+        const unsigned long long* x, unsigned long long* y) {              \\
+        const narrow::Gl64 f{};                                            \\
+        const unsigned long long a = x[threadIdx.x];                       \\
+        const unsigned long long b = x[128 + threadIdx.x];                 \\
+        y[threadIdx.x] = EXPR;                                             \\
+    }
+"""
+    for op, expr in GL64_PROBE_OPS.items():
+        text += f"GL64_PROBE({op}, {expr})\n"
     (d / "probe.cu").write_text(text)
     lib = d / "libprobe.so"
     proc = subprocess.run([_build.nvcc(), *_build.FLAGS, "-I",
@@ -382,6 +492,8 @@ def _load(path, source):
         sigs = NK._WIDE_SIGNATURES
     if source == "ntt_mont32":
         sigs = NK._MONT32_SIGNATURES
+    if source == "ntt_gl64":
+        sigs = NK._SIGNATURES
     for fn, argtypes in sigs.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -468,7 +580,7 @@ def main():
     W = 2 * n32
     rng = np.random.default_rng(8)
     sources = {v[0] for v in chosen.values()}
-    if sources - {"ntt_wide", "ntt_mont32"}:
+    if sources - {"ntt_wide", "ntt_mont32", "ntt_gl64"}:
         pt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
         qt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
         # level 1 of the G2 tree: the point table and a random row a side,
@@ -520,6 +632,16 @@ def main():
                                               dev)
         nxc = _words(fb.modulus, 1, ncshape, rng, dev)[0]
         nxr = _words(fb.modulus, 1, nrshape, rng, dev)[0]
+    if "ntt_gl64" in sources:
+        # any 64-bit words, as the Goldilocks kernels take them
+        gtw1, gmid, gtw2 = fused.fused_tables(GL64_FIELD, GL64_LG, False,
+                                              dev)
+        gxc, gxr = (torch.from_numpy(rng.integers(
+            -1 << 63, 1 << 63, size=NARROW_COLS[0] if k == 0
+            else NARROW_ROWS[0], dtype=np.int64)).to(dev) for k in (0, 1))
+        gx24 = G64.from_wire(rng.integers(
+            0, get_field(GL64_FIELD).modulus, size=1 << GL64_LG,
+            dtype=np.uint64), dev)
     calls = {"ec_fp2_add": lambda: EK.xyzz_add("bls12_381_g2", pt, qt),
              "ec_fp2_pair": lambda: EK.affine_pair_finish(
                  "bls12_381_g2", table, table, inv, flags, (idx[0], idx[1])),
@@ -542,7 +664,17 @@ def main():
              "ntt_mont32": lambda: [NK.mont32_cols(NARROW_FIELD, nxc, ntw1,
                                                    nclg, nmid)],
              "ntt_mont32_rows": lambda: [NK.mont32_rows(
-                 NARROW_FIELD, nxr, ntw2, nrlg, out_t=True)]}
+                 NARROW_FIELD, nxr, ntw2, nrlg, out_t=True)],
+             "ntt_gl64": lambda: [NK.ntt_cols(gxc, gtw1, NARROW_COLS[1],
+                                              gmid)],
+             "ntt_gl64_rows": lambda: [NK.ntt_rows(gxr, gtw2, NARROW_ROWS[1],
+                                                   out_t=True)],
+             "ntt_gl64_rows_natural": lambda: [NK.ntt_rows(
+                 gxr, gtw2, NARROW_ROWS[1])],
+             "ntt_gl64_ntt": lambda: [ntt.base_dev(GL64_FIELD, gx24,
+                                                   GL64_LG)],
+             "ntt_gl64_lde": lambda: [ntt.lde_dev(GL64_FIELD, gx24, GL64_LG,
+                                                  GL64_BLOWUP)]}
 
     # a parent's calls where its kernels took other operands: level 1's
     # gathered rows
@@ -552,10 +684,13 @@ def main():
         "ec_fp2_pair_prep": lambda: EK.affine_pair_prep("bls12_381_g2", l,
                                                         r)}
     # the other calls of a source: batch_inv's in degree 2, ec_xyzz's add,
-    # ntt_wide's and ntt_mont32's row passes, ec_fp2_pair's prep at levels
+    # the NTT sources' row passes, ec_fp2_pair's prep at levels
     # 1 and 2 and its finish at level 2
     twins = {"batch_inv_fp2": "batch_inv", "ec_xyzz_add": "ec_xyzz",
              "ntt_wide_rows": "ntt_wide", "ntt_mont32_rows": "ntt_mont32",
+             "ntt_gl64_rows": "ntt_gl64", "ntt_gl64_ntt": "ntt_gl64",
+             "ntt_gl64_rows_natural": "ntt_gl64",
+             "ntt_gl64_lde": "ntt_gl64",
              "ec_fp2_pair_prep": "ec_fp2_pair",
              "ec_fp2_pair_prep_l2": "ec_fp2_pair",
              "ec_fp2_pair_l2": "ec_fp2_pair"}
@@ -613,6 +748,13 @@ def main():
                               f"times the middle matrix")
     shape_of["ntt_mont32_rows"] = (f"{NARROW_ROWS[0]}, lg {NARROW_ROWS[1]}, "
                                    f"out_t")
+    shape_of["ntt_gl64"] = shape_of["ntt_mont32"]
+    shape_of["ntt_gl64_rows"] = shape_of["ntt_mont32_rows"]
+    shape_of["ntt_gl64_rows_natural"] = (f"{NARROW_ROWS[0]}, lg "
+                                         f"{NARROW_ROWS[1]}, natural order")
+    shape_of["ntt_gl64_ntt"] = f"2^{GL64_LG}, ntt.base_dev"
+    shape_of["ntt_gl64_lde"] = (f"2^{GL64_LG} x{1 << GL64_BLOWUP}, "
+                                f"ntt.lde_dev")
     for name in runs:
         what = shape_of[re.match(r"\w+", name).group()]
         print(f"time {name} at {what}: " + " / ".join(

@@ -30,36 +30,57 @@ def dev():
 
 
 def _raw(rng, dev, *shape):
-    return gl64.from_wire(rng.integers(0, 1 << 64, size=shape,
-                                       dtype=np.uint64), dev)
+    """Any 64-bit words: 0, p - 1, p, p + 1 and 2^64 - 1 in the first lanes
+    and 2^64 - 1 in a whole warp's lanes."""
+    p, top = params.GOLDILOCKS.modulus, (1 << 64) - 1
+    w = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+    flat = w.reshape(-1)
+    edges = [0, p - 1, p, p + 1, top]
+    flat[:len(edges)] = edges[:flat.size]
+    flat[32:64] = top
+    return gl64.from_wire(w, dev)
 
 
-@pytest.mark.parametrize("lg", [1, 7, 13])
+@pytest.mark.parametrize("lg", range(1, 14))
 def test_rows_kernel_vs_plain(dev, lg):
+    """Every lg, so every split of the radix passes; row counts that are
+    not a multiple of the rows a block holds (7, 37); out_t with OB > 1 and
+    B = 5, neither a power of two nor a multiple of a run of rows (the
+    store's general path), and B = 64 (its runs of rows)."""
     rng = np.random.default_rng(lg)
+    n = 1 << lg
     tw = get_parameters("goldilocks", dev).power_table(lg, False)
-    x, mul = _raw(rng, dev, 2, 5, 1 << lg), _raw(rng, dev, 2, 5, 1 << lg)
+    shapes = [(2, 5, n), (7, n), (37, n), (3, 64, n)]
     before = K.launches["gl64_ntt_rows"]
-    for in_rev in (False, True):
-        for out_rev in (False, True):
-            for out_t in (False, True):
-                for m in ((None,) if out_rev else (None, mul)):
-                    args = (x, tw, lg, m, in_rev, out_rev, out_t)
-                    got = K.ntt_rows(*args)
-                    torch.cuda.synchronize()
-                    assert torch.equal(got, K.ntt_rows_plain(*args)), args[3:]
-    assert K.launches["gl64_ntt_rows"] == before + 12
+    for shape in shapes:
+        x, mul = _raw(rng, dev, *shape), _raw(rng, dev, *shape)
+        for in_rev in (False, True):
+            for out_rev in (False, True):
+                for out_t in (False, True):
+                    for m in ((None,) if out_rev else (None, mul)):
+                        args = (x, tw, lg, m, in_rev, out_rev, out_t)
+                        got = K.ntt_rows(*args)
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, K.ntt_rows_plain(*args)), \
+                            (shape, args[3] is not None, *args[4:])
+    assert K.launches["gl64_ntt_rows"] == before + 12 * len(shapes)
 
 
-@pytest.mark.parametrize("lg", [1, 6, 11])
+@pytest.mark.parametrize("lg", range(1, 14))
 def test_cols_kernel_vs_plain(dev, lg):
+    """Every lg, column counts from 1 to 64 (fewer than a block's columns
+    included) and 8192, batched and not, with and without the matrix."""
     rng = np.random.default_rng(lg)
     tw = get_parameters("goldilocks", dev).power_table(lg, True)
-    x, mid = _raw(rng, dev, 3, 1 << lg, 64), _raw(rng, dev, 1 << lg, 64)
-    for m in (None, mid):
-        got = K.ntt_cols(x, tw, lg, m)
-        torch.cuda.synchronize()
-        assert torch.equal(got, K.ntt_cols_plain(x, tw, lg, m))
+    for m_cols in (1, 2, 4, 8, 64, 8192):
+        x = _raw(rng, dev, 3, 1 << lg, m_cols)
+        mid = _raw(rng, dev, 1 << lg, m_cols)
+        for xx in (x, x[0].contiguous()):
+            for m in (None, mid):
+                got = K.ntt_cols(xx, tw, lg, m)
+                torch.cuda.synchronize()
+                assert torch.equal(got, K.ntt_cols_plain(xx, tw, lg, m)), \
+                    (m_cols, tuple(xx.shape), m is not None)
 
 
 @pytest.mark.parametrize("lg", [5, 14, 20])
