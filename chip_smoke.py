@@ -27,10 +27,10 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      their registers and spills from the build log;
   6. holds the Montgomery multiply, the fixed-exponent power bigmont_pow
      (e = 0, 1, 2, p - 2, (p + 1) / 4 at 1, 31, 32, 33 and 2^16 lanes) and
-     the three xyzz point kernels (the madd and add on the carry-chain
-     element) against their plain versions on test_bm64, Pasta and
-     BLS12-381 (n32 = 2, 8, 12), exactly, with edge values and planted
-     special lanes (empty bucket, point at infinity, doubling,
+     the three xyzz point kernels (on the carry-chain element) against
+     their plain versions on test_bm64, Pasta and BLS12-381 (n32 = 2, 8,
+     12), exactly, with edge values and planted special lanes (empty
+     bucket, point at infinity, doubling,
      cancellation, coordinates p - 1 and p - 2, a warp with no doubling
      lane), and the madd through a gather table and a slot index
      (negated rows, the zero row, repeated rows);
@@ -48,7 +48,9 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      time by kernel and the kernels of its gather (the slot index: no
      index_select over the point table); times each MSM kernel alone at
      its main-path shapes (the madd through the table and the slot index),
-     beside the plain versions and the bounds;
+     beside the plain versions and the bounds, and the dbl also at 2^18
+     lanes; prints the dbl's single-thread floor and its registers and
+     spills;
  10. holds the wide NTT kernels (bigmont_ntt_rows, bigmont_ntt_cols,
      bigmont_ntt_mid) against their plain versions on test_bm64_fr, BN254
      Fr, BLS12-381 Fr, BLS12-377 Fr and Pallas, every option, with the
@@ -122,9 +124,11 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      ms of bigmont_ew, the batch inversion's kernels and the elementwise
      kernels, and msm.tree_levels' device and host ms) and times each pair
      kernel alone at its level-1 shape, through the point table and window
-     group 0's level-0 index; the batch inversion at level 1 on the main
-     path's denominators (each kernel alone, the plain versions on a 2^20
-     lane slice held against the kernels there, the pipeline by events,
+     group 0's level-0 index (and the G1 finish's registers and spills,
+     and each tree's dbl's device microseconds a launch); the batch
+     inversion at level 1 on the main path's denominators (each kernel
+     alone, the plain versions on a 2^20 lane slice held against the
+     kernels there, the pipeline by events,
      and the pipeline and the product tree it replaced by the wall clock);
      and bigmont_pow at one lane (x^(p - 2), every inversion's
      shape), beside its plain version and its bound, and prints
@@ -215,6 +219,7 @@ LG_SMALL = 10       # the msm_naive and plain-path checks
 PLAIN_WBITS = 4     # the plain path's windows: few buckets, a short integrate
 EC_CURVES = ("test_bm64", "pallas", "bls12_381")
 POW_LANES = (1, 31, 32, 33, 1 << 16)    # bigmont_pow's checks: prefixes
+DBL_WIDE_LANES = 1 << 18    # the G1 dbl timed at a wide shape too
 M32 = 0xFFFFFFFF
 
 
@@ -640,6 +645,20 @@ MSM_RANGES = ("msm.schedule", "msm.gather", "msm.madd_rounds", "msm.fold",
 EC_OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
 
 
+def point_kernel(mangled):
+    """A point kernel's name from its mangled name, as kernel_group reads
+    a profile's: "ec_kernel<FpCC<12>,pair_finish,table>" (",table": the
+    build that reads a tree's first level through the index); None for
+    another kernel."""
+    m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi(\d+)EEELi"
+                  r"(\d)ELb([01])E", mangled)
+    if not m:
+        return None
+    elem, n, op, table = m.groups()
+    return (f"ec_kernel<{elem}<{n}>,{EC_OPS[int(op)]}"
+            + (",table>" if table == "1" else ">"))
+
+
 def kernel_group(name):
     """A device event's name, the point and field kernels by their op."""
     m = re.search(r"ec_kernel<mont::(FpCC|Fp2Pair|Fp2|Fp)<\d+>, ?(\d)[,>]",
@@ -828,8 +847,9 @@ def msm_times(ctx, wd, curve, lg, card):
     return t_msm, peak, resident, busy, t_prof, phases, by_kernel
 
 
-def msm_phases(dev, card, rate):
-    """Phases 6-9.  Returns (the kernels' entries of the summary line, the
+def msm_phases(dev, card, rate, logs):
+    """Phases 6-9; `logs`: {source: nvcc log} of the sources built in this
+    run.  Returns (the kernels' entries of the summary line, the
     main path's base points and exact result, for the tree in phase 18,
     the main path's launches, bigmont_pow's largest error in phase 6)."""
     import torch
@@ -927,6 +947,15 @@ def msm_phases(dev, card, rate):
     F = get_field_ops(fp)
     inv_lanes = torch.cat([win[2], win[3]], dim=-1)
     big = rand_canon(F, 1 << 20, rng, dev)
+    # the dbl at a wide shape, every lane on the fast leg (random
+    # coordinates: ZZ and Y are not 0), against its operations bound
+    dbl_ops = 6 * prod_ops(N) + 3 * sqr_ops(N) + 7 * 2 * N
+    wide = tuple(rand_canon(F, DBL_WIDE_LANES, rng, dev) for _ in range(4))
+    cases += [
+        (f"ec_xyzz_dbl 2^{DBL_WIDE_LANES.bit_length() - 1}", DBL_WIDE_LANES,
+         lambda: EK.xyzz_dbl(MSM_CURVE, wide),
+         lambda: EK.xyzz_dbl_plain(MSM_CURVE, wide),
+         8 * 4 * N * DBL_WIDE_LANES, DBL_WIDE_LANES * dbl_ops)]
     cases += [
         ("bigmont_ew", inv_lanes.shape[1],
          lambda: FK.mont_mul(inv_lanes, inv_lanes, fp),
@@ -937,6 +966,19 @@ def msm_phases(dev, card, rate):
          3 * 4 * N << 20, prod_ops(N) << 20),
     ]
     timing = time_kernels(cases, same, rate, card)
+    del wide
+    # one lane's doubling is one thread's chain: at the integrate's few
+    # lanes no more than one instruction a cycle at the SM clock
+    clock = rate / (torch.cuda.get_device_properties(0).multi_processor_count
+                    * 64)
+    dbl_floor = dbl_ops / clock * 1e3
+    regs = ptxas_summary(logs.get("ec_xyzz", ""), point_kernel)
+    print(f"ec_xyzz_dbl over {fp.name}: one lane's 6M + 3S + 7A, {dbl_ops} "
+          f"operations; single-thread floor {dbl_floor:.7f} ms at one "
+          f"instruction per cycle and {clock / 1e9:.3f} GHz; ec_kernel<FpCC<"
+          f"{N}>,xyzz_dbl>: " + regs.get(f"ec_kernel<FpCC<{N}>,xyzz_dbl>",
+                                         "registers: not rebuilt in this run")
+          + f"  [{card}]", flush=True)
     print(json.dumps({"msm_ms": {f"{MSM_CURVE} 2^{MSM_LG}": t_msm,
                                  f"{PASTA_CURVE} 2^{PASTA_LG}": t_pasta},
                       "msm_phases_device_host_ms": phases,
@@ -945,7 +987,9 @@ def msm_phases(dev, card, rate):
                       "msm_device_busy_ms": busy,
                       "msm_profiled_wall_ms": t_prof,
                       "msm_launches": launches,
-                      "pasta_launches": plaunches, "card": card}))
+                      "pasta_launches": plaunches,
+                      "dbl_single_thread_floor_ms": dbl_floor,
+                      "card": card}))
 
     src = "sppark_tpu_torch/csrc/"
     replaces = {"bigmont_ew": ("bigmont.cu", "sppark_tpu/ff/bigmont.py:383"),
@@ -1874,9 +1918,10 @@ def pow_chain(e, win):
     return win * top, table + sum(1 for d in digits if d)
 
 
-def tree_phases(dev, card, rate, g1, g2, pow_err):
+def tree_phases(dev, card, rate, g1, g2, pow_err, logs):
     """Phases 17-19 on the G1 and G2 main paths' (base points, exact
-    result); `pow_err` is bigmont_pow's largest error in phase 6.  Returns
+    result); `pow_err` is bigmont_pow's largest error in phase 6; `logs`:
+    {source: nvcc log} of the sources built in this run.  Returns
     (the pair kernels' and bigmont_pow's entries of the summary line, the
     phases' numbers, the tree paths' launches)."""
     import torch
@@ -1997,7 +2042,8 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
                         f"{key}_kernels_ms_launches": by_kernel})
         per = {k: by_kernel.get(k, (0.0, 0)) for k in (
             "bigmont_ew", "bigmont_inv_up", "bigmont_pow",
-            "bigmont_inv_down")}
+            "bigmont_inv_down", EK.kernel_name("pair_finish", curve),
+            EK.kernel_name("xyzz_dbl", curve))}
         per["elementwise"] = tuple(map(sum, zip((0.0, 0), *(
             v for k, v in by_kernel.items() if "elementwise" in k))))
         lv_dev, lv_host = phases["msm.tree_levels"]
@@ -2010,11 +2056,26 @@ def tree_phases(dev, card, rate, g1, g2, pow_err):
         numbers[f"{key}_per_invoke_ms_launches"] = per
         cp = get_curve(curve)
         N = cp.field.n_ref_limbs
+        dbl = EK.kernel_name("xyzz_dbl", curve)
+        print(f"{dbl} in the tree {curve} 2^{lg}: "
+              f"{per[dbl][0] / max(per[dbl][1], 1) * 1e3:.2f} device us a "
+              f"launch ({per[dbl][1]} launches, the profiled invoke)  "
+              f"[{card}]", flush=True)
         ops = (fp2_ops(N, cp.fp2.nr_small) if cp.fp2 else
                (prod_ops(N), sqr_ops(N), 2 * N))
         den, cases = pair_level1(curve, c, w, *ops)
         timing.update(time_kernels(cases, same, rate, card))
         del cases
+        if cp.fp2 is None:
+            regs = ptxas_summary(logs.get("ec_pair", ""), point_kernel)
+            print(f"ec_pair_finish at N = {N}: " + "; ".join(
+                f"{what} {regs.get(k, 'not rebuilt in this run')}"
+                for what, k in (
+                    ("level 1 (through the index)",
+                     f"ec_kernel<FpCC<{N}>,pair_finish,table>"),
+                    ("later levels (in place)",
+                     f"ec_kernel<FpCC<{N}>,pair_finish>")))
+                  + f"  [{card}]", flush=True)
         inv_t, inv_nums = inv_level1(curve, c.stages.ops.F, den, same, rate,
                                      card)
         numbers[f"{key}_batch_inv_level1"] = inv_nums
@@ -2169,15 +2230,20 @@ def narrow_words(field, rng, dev, *shape, planted=True):
     return torch.from_numpy(w.astype(np.int32)).to(dev)
 
 
-def ptxas_summary(log):
+def ptxas_summary(log, name_of=None):
     """{kernel name: "R registers, S / L bytes spill stores / loads"} from
-    an nvcc -Xptxas -v build log."""
+    an nvcc -Xptxas -v build log.  name_of(mangled name) names a kernel,
+    None to leave it out; default: the NTT passes' rows_kernel and
+    cols_kernel."""
     out, entry = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(rows_kernel|"
-                      r"cols_kernel)", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            entry = m.group(1)
+            if name_of:
+                entry = name_of(m.group(1))
+            else:
+                k = re.search(r"(rows_kernel|cols_kernel)", m.group(1))
+                entry = k.group(1) if k else None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if entry and m:
@@ -2865,15 +2931,16 @@ def main():
               f"[{card}]", flush=True)
 
     del xm, tables, main_shapes, state, x, y
+    logs = {k: v.get("log", "") for k, v in info.items()}
     msm_entries, g1_input, g1_launches, pow_err = msm_phases(dev, card,
-                                                             rate)
+                                                             rate, logs)
     torch.cuda.empty_cache()
     wide_entries, wide_numbers = wide_phases(dev, card, rate)
     torch.cuda.empty_cache()
     g2_entries, g2_numbers, g2_input = g2_phases(dev, card, rate)
     torch.cuda.empty_cache()
     tree_entries, tree_numbers, tree_launches = tree_phases(
-        dev, card, rate, g1_input, g2_input, pow_err)
+        dev, card, rate, g1_input, g2_input, pow_err, logs)
     del g1_input, g2_input
     torch.cuda.empty_cache()
     narrow_entries, narrow_numbers = narrow_phases(

@@ -1,8 +1,8 @@
 // The point kernels' body and launch, shared by ec_xyzz.cu and
 // ec_pair.cu (G1) and ec_fp2_*.cu (G2): one point (or pair) per thread, or
 // per lane pair of threads (Elem<E>::THREADS), the formulas of xyzz.cuh and
-// pair.cuh.  The G1 madd and add run on the carry-chain element
-// (mont::FpCC<N>, mont_cc.cuh), the G1 dbl and pair kernels on mont::Fp<N>.
+// pair.cuh.  The G1 madd, add, dbl and pair finish run on the carry-chain
+// element (mont::FpCC<N>, mont_cc.cuh), the G1 pair prep on mont::Fp<N>.
 // The G2 madd, add, pair prep and pair finish run on the lane pair
 // (mont::Fp2Pair<N>: thread 2i holds c0 of lane i, thread 2i + 1 holds
 // c1); the G2 dbl keeps one thread a lane (mont::Fp2<N>).
@@ -33,8 +33,11 @@
 // into a shared-memory tile with 16-byte cp.async copies, neighbouring
 // threads on neighbouring chunks of one row, each lane's 4 W words padded
 // by 16 bytes so that a warp's reads spread over the banks; each thread
-// then reads its coefficient's words from there.  Read straight from the
-// table, the 16 lanes of a warp touch 32 rows on every load.
+// then reads its coefficient's words from there (`staged`).  Read straight
+// from the table, the 16 lanes of a warp touch 32 rows on every load.  The
+// G1 pair kernels, one thread a lane, read the table straight, 16 bytes a
+// load.  The finish loads both rows, inv and the flag word before its
+// first product, so their latencies overlap.
 //
 // Each entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError().
@@ -195,25 +198,43 @@ __device__ __forceinline__ void copy_wait() {
                      : "memory");
 }
 
+// the words a thread holds of an element
+template <int N>
+__device__ __forceinline__ uint32_t* words(mont::Fp<N>& a) { return a.w; }
+template <int N>
+__device__ __forceinline__ uint32_t* words(mont::FpCC<N>& a) { return a.w; }
+template <int N>
+__device__ __forceinline__ uint32_t* words(mont::Fp2Pair<N>& a) {
+    return a.v.w;
+}
+
 // an element from shared memory: this thread's N words at t, read 16
 // bytes at a time where N allows
-template <int N>
-__device__ __forceinline__ mont::Fp2Pair<N> load_tile(const uint32_t* t) {
-    mont::Fp2Pair<N> r;
+template <class E>
+__device__ __forceinline__ E load_tile(const uint32_t* t) {
+    constexpr int N = mont::Elem<E>::BASE;
+    E r;
+    uint32_t* w = words(r);
     if constexpr (N % 4 == 0) {
 #pragma unroll
         for (int q = 0; q < N / 4; q++) {
             uint4 v = reinterpret_cast<const uint4*>(t)[q];
-            r.v.w[4 * q] = v.x;
-            r.v.w[4 * q + 1] = v.y;
-            r.v.w[4 * q + 2] = v.z;
-            r.v.w[4 * q + 3] = v.w;
+            w[4 * q] = v.x;
+            w[4 * q + 1] = v.y;
+            w[4 * q + 2] = v.z;
+            w[4 * q + 3] = v.w;
         }
     } else {
-        r.v = mont::from_words<N>(t);
+#pragma unroll
+        for (int k = 0; k < N; k++) w[k] = t[k];
     }
     return r;
 }
+
+// whether a pair kernel on a tree's first level stages its point operands
+// in a shared-memory tile: the lane-pair kernels do
+template <class E>
+constexpr bool staged = mont::Elem<E>::THREADS == 2;
 
 // The pair kernel of lane i from its point operands: prep stores den and
 // the flag word (one thread of a lane pair stores the flag), finish reads
@@ -231,9 +252,10 @@ __device__ __forceinline__ void pair_op(const Args<mont::Elem<E>::BASE>& a,
         if (mont::Elem<E>::THREADS == 1 || (threadIdx.x & 1) == 0)
             a.out[W * a.n + i] = f;
     } else {
+        uint32_t f = a.in[5].p[i * a.in[5].sl];
+        E inv = load<E>(a.in[4], i);
         E ox, oy;
-        pair::finish(x1, y1, x2, y2, load<E>(a.in[4], i),
-                     a.in[5].p[i * a.in[5].sl], ox, oy, a.c);
+        pair::finish(x1, y1, x2, y2, inv, f, ox, oy, a.c);
         store(a.out, a.n, i, 0, ox);
         store(a.out, a.n, i, W, oy);
     }
@@ -251,7 +273,7 @@ __device__ __forceinline__ void point_op(
     long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) / T;
     constexpr long long W = mont::Elem<E>::WORDS;
     constexpr bool PAIR = OP == PAIR_PREP || OP == PAIR_FINISH;
-    if constexpr (PAIR && T == 2 && TABLE) {
+    if constexpr (PAIR && TABLE && staged<E>) {
         // the block's LANES rows of 4 W words (x1 y1 from the l table, x2
         // y2 from the r table), each padded by 4 words
         constexpr int N = mont::Elem<E>::BASE, LANES = THREADS / T;
@@ -270,9 +292,9 @@ __device__ __forceinline__ void point_op(
             __syncthreads();
             if (i >= a.n) return;
             const uint32_t* t = tile + (threadIdx.x / T) * S +
-                                (mont::pair_odd() ? N : 0);
-            pair_op<E, OP>(a, i, load_tile<N>(t), load_tile<N>(t + W),
-                           load_tile<N>(t + 2 * W), load_tile<N>(t + 3 * W));
+                                (T == 2 && mont::pair_odd() ? N : 0);
+            pair_op<E, OP>(a, i, load_tile<E>(t), load_tile<E>(t + W),
+                           load_tile<E>(t + 2 * W), load_tile<E>(t + 3 * W));
             return;
         }
     }
@@ -314,17 +336,28 @@ constexpr bool carry_chains = false;
 template <int N>
 constexpr bool carry_chains<mont::FpCC<N>> = true;
 
-namespace min3 {
-// The G1 madd and add on the carry-chain element ask for 3 blocks an SM:
-// ptxas then fits them in 168 registers with a few spilled words, where
-// it picks 178 and 212 (2 blocks an SM), and they ran 7% and 12% faster
-// on the H100 (variants.py, PERF.md).
-template <class E, int OP, bool TABLE>
-__global__ void __launch_bounds__(THREADS, 3)
+// The minimum of blocks an SM that each G1 kernel on the carry-chain
+// element asks for, which caps ptxas at 65536 / (128 MIN) registers a
+// thread; 0 would launch ec_kernel, with none.  Chosen per op on the H100
+// (variants.py, PERF.md):
+//   madd, add, dbl: 3, 168 registers with a few spilled words, where
+//     ptxas picks 178 and 212 (2 blocks an SM); the madd and add ran 7%
+//     and 12% faster;
+//   pair finish: 4, four blocks an SM to wait on a tree level's
+//     scattered rows (it holds six elements, where the madd holds ten):
+//     120-122 registers, no spill, as at 3; with none ptxas picks 120
+//     and it ran 1% slower, at 5 (96 registers) it spilled and ran 5%
+//     slower at the G1 tree's level 1.
+template <int OP>
+constexpr int cc_min_blocks = OP == PAIR_FINISH ? 4 : 3;
+
+namespace min_blocks {
+template <class E, int OP, bool TABLE, int MIN>
+__global__ void __launch_bounds__(THREADS, MIN)
 ec_kernel(const __grid_constant__ Args<mont::Elem<E>::BASE> a) {
     point_op<E, OP, TABLE>(a);
 }
-}  // namespace min3
+}  // namespace min_blocks
 
 template <class E, int OP, bool TABLE>
 void launch(const long long* views, int n_in, uint32_t* out, long long n,
@@ -349,8 +382,7 @@ void launch(const long long* views, int n_in, uint32_t* out, long long n,
     // l and r is a table through one index, in aligned point-major rows
     // with y's words right after x's: lane i's 2 W words at row idx[i]
     constexpr long long W = mont::Elem<E>::WORDS;
-    a.tile = TABLE && (OP == PAIR_PREP || OP == PAIR_FINISH) &&
-             mont::Elem<E>::THREADS == 2;
+    a.tile = TABLE && (OP == PAIR_PREP || OP == PAIR_FINISH) && staged<E>;
     for (int k = 0; k < 4; k += 2)
         a.tile = a.tile && a.in[k].idx && a.in[k].vec &&
                  a.in[k + 1].idx == a.in[k].idx &&
@@ -358,8 +390,10 @@ void launch(const long long* views, int n_in, uint32_t* out, long long n,
                  a.in[k + 1].sw == 1 && a.in[k + 1].sl == a.in[k].sl;
     long long threads = n * mont::Elem<E>::THREADS;
     unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
-    if constexpr (carry_chains<E>)
-        min3::ec_kernel<E, OP, TABLE><<<blocks, THREADS, 0, s>>>(a);
+    constexpr int MIN = cc_min_blocks<OP>;
+    if constexpr (carry_chains<E> && MIN > 0)
+        min_blocks::ec_kernel<E, OP, TABLE, MIN>
+            <<<blocks, THREADS, 0, s>>>(a);
     else
         ec_kernel<E, OP, TABLE><<<blocks, THREADS, 0, s>>>(a);
 }

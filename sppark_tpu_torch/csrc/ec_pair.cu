@@ -11,18 +11,27 @@
 // inversion between them is a product tree over every lane of the level,
 // so it cannot live in one kernel, on the TPU or here.  The formulas and
 // the case order are in pair.cuh, the operand views and the launch in
-// ec_kernel.cuh (shared with the xyzz kernels); here the element is
-// mont::Fp<n32>, n32 = 2, 8 or 12.  Their fp2 twins are in ec_fp2_pair.cu.
+// ec_kernel.cuh (shared with the xyzz kernels), n32 = 2, 8 or 12.  Their
+// fp2 twins are in ec_fp2_pair.cu.
 //
 // What bounds them on the card: prep does three modular additions against
 // five coordinates moved per lane, so memory bounds it; finish does two
 // products, a squaring and five additions against seven coordinates moved,
-// about even between the integer multiply rate and memory at n32 = 12.
+// nominally memory-bound at n32 = 12 but on mont::Fp<n32> (985 SASS
+// instructions a product) it ran at 0.43 of its bound.
 // On a tree's first level the point operands are rows of the point table
 // read through the level-0 index, 16 bytes at a time (a row at n32 = 12 is
 // 96 bytes: x at byte 0, y at byte 48); on a later level they are the even
 // and odd lanes of the level below, read in place.  One thread per pair;
 // the tangent leg is a per-lane branch that shares the chord's completion.
+//
+// The prep's three additions stay on mont::Fp<n32>.  The finish runs on
+// the carry-chain element mont::FpCC<n32> (mont_cc.cuh: 397 SASS
+// instructions a product at n32 = 12), whose products at n32 >= 4 need a
+// spare bit of p (the launch refuses a p without one, as the G1 madd's
+// does), with its own minimum of blocks an SM (ec_kernel.cuh:
+// cc_min_blocks), and issues its loads (both rows through the index, inv,
+// the flag word) before its first product.
 
 #include "ec_kernel.cuh"
 
@@ -42,9 +51,11 @@ extern "C" int ec_pair_prep(int n32, const void* views, void* out,
 
 extern "C" int ec_pair_finish(int n32, const void* views, void* out,
                               long long n, const void* consts, void* stream) {
+    if (!mont::spare_bit(n32, static_cast<const uint32_t*>(consts)))
+        return (int)cudaErrorInvalidValue;
     if (ec::indexed(views))
-        return ec::dispatch<mont::Fp, ec::PAIR_FINISH, true>(
+        return ec::dispatch<mont::FpCC, ec::PAIR_FINISH, true>(
             n32, views, 6, out, n, consts, stream);
-    return ec::dispatch<mont::Fp, ec::PAIR_FINISH>(n32, views, 6, out, n,
-                                                   consts, stream);
+    return ec::dispatch<mont::FpCC, ec::PAIR_FINISH>(n32, views, 6, out, n,
+                                                     consts, stream);
 }

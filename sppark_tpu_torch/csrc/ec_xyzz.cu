@@ -8,9 +8,8 @@
 //     (xyzz doubling: integrate).
 // The formulas and the order of the special cases are in xyzz.cuh, the
 // operand views and the launch in ec_kernel.cuh (shared with the G2
-// kernels, ec_fp2_*.cu).  The madd and the add run on the carry-chain
-// element mont::FpCC<n32> (mont_cc.cuh), the dbl on mont::Fp<n32>
-// (mont.cuh).
+// kernels, ec_fp2_*.cu).  All three run on the carry-chain element
+// mont::FpCC<n32> (mont_cc.cuh).
 //
 // What bounds them on the card: a madd is 8M + 2S, ~10 x 2 n32^2
 // 32x32->64 multiplies, against 10 n32 words moved per lane, so the integer
@@ -20,7 +19,9 @@
 // chains, which ptxas fuses into one IMAD.WIDE.U32.X a 32x32 product, in
 // two chains a row that do not wait on each other (mont::FpCC), where
 // mont::Fp's 64-bit sums took about three instructions; and 3 blocks an
-// SM (ec_kernel.cuh: min3).
+// SM (ec_kernel.cuh: cc_min_blocks).  The integrate's doubling runs at a
+// few lanes (16 on the BLS12-381 G1 tree), one warp's chain of dependent
+// products: there the element's shorter products set its time.
 // The madd's affine point is read from the slab MSM's point table through
 // the slot index (ec_kernel.cuh), so no slab of points is written and read
 // back.  The doubling leg is a per-lane branch: a warp with no doubling
@@ -51,6 +52,8 @@ extern "C" int ec_xyzz_add(int n32, const void* views, void* out, long long n,
 
 extern "C" int ec_xyzz_dbl(int n32, const void* views, void* out, long long n,
                            const void* consts, void* stream) {
-    return ec::dispatch<mont::Fp, ec::DBL>(n32, views, 4, out, n, consts,
-                                           stream);
+    if (!mont::spare_bit(n32, static_cast<const uint32_t*>(consts)))
+        return (int)cudaErrorInvalidValue;
+    return ec::dispatch<mont::FpCC, ec::DBL>(n32, views, 4, out, n, consts,
+                                             stream);
 }

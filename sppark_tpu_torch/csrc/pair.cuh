@@ -1,6 +1,6 @@
-// Batch-affine pair add formulas for the kernels of ec_pair.cu (G1,
-// element mont::Fp<N>) and ec_fp2_pair.cu (G2, on the lane pair's
-// mont::Fp2Pair<N>): the two halves of one level of the segmented-tree
+// Batch-affine pair add formulas for the kernels of ec_pair.cu (G1: the
+// prep on mont::Fp<N>, the finish on mont::FpCC<N>) and ec_fp2_pair.cu
+// (G2, on the lane pair's mont::Fp2Pair<N>): the two halves of one level of the segmented-tree
 // MSM (msm/tree.py), around a batch inversion that runs across all lanes
 // between them.  One pair per thread (or per lane pair of threads), every
 // coordinate in registers.

@@ -2,8 +2,9 @@
 // (the role of sppark's ec/xyzz_t.hpp), one point per thread (or per lane
 // pair of threads), every coordinate in registers.  One text serves G1 and
 // G2: the formulas are templates over the coordinate's element type E,
-// mont::Fp<N>, mont::Fp2<N> or mont::Fp2Pair<N> (the G2 madd and add),
-// whose ops are the overloads of mont.cuh.
+// mont::FpCC<N> (G1), mont::Fp2<N> (the G2 dbl) or mont::Fp2Pair<N> (the
+// G2 madd and add), whose ops are the overloads of mont.cuh and
+// mont_cc.cuh.
 //
 // A point is (X, Y, ZZ, ZZZ) with x = X/ZZ, y = Y/ZZZ; infinity is ZZ == 0.
 // Each function gives, word for word, the result of the TPU kernel's select

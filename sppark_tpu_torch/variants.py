@@ -2,10 +2,10 @@
 wide, 31-bit and Goldilocks NTTs' row and column passes, timed against
 the committed ones on one card and on the same data:
 
-    python3 -m sppark_tpu_torch.variants [--parent DIR] [part of a name]
+    python3 -m sppark_tpu_torch.variants [--parent DIR] [part of a name ...]
     python3 -m sppark_tpu_torch.variants --sass [source ...]
 
-(with an argument, only the variants whose name holds it, and the
+(with arguments, only the variants whose name holds one of them, and the
 committed kernels they replace; with --parent, one more variant of each
 chosen source built from DIR, a copy of csrc/ at an earlier commit
 (`git archive REV sppark_tpu_torch/csrc | tar -x -C DIR0`, DIR =
@@ -22,9 +22,14 @@ or 4 blocks an SM in `__launch_bounds__` (which caps ptxas at 65536 /
 (128 blocks) registers a thread; the committed kernels give no minimum),
 the prep's or both pair kernels' direct loads from the table in place of
 their shared-memory tile, and the tile's copies cached in L2 only
-(`cp.async.cg`).  For the G1 madd and add: their element before
+(`cp.async.cg`).  For the G1 madd, add and dbl: their element before
 the carry chains (`mont::Fp`, with no minimum of blocks), or a minimum of
-1 or 2 blocks, or none, in place of the committed 3.  For the batch
+1 or 2 blocks, or none, in place of the committed 3.  For the G1 pair
+finish: its element before the carry chains (`mont::Fp`, no minimum of
+blocks), no minimum or a minimum of 3 or 5 blocks an SM in place of the
+committed 4, inv loaded on the active lanes only (a copy or zero lane
+needs none), and the G1 pair kernels' level-1 rows staged in the
+lane-pair kernels' shared-memory tile (`staged`).  For the batch
 inversion (csrc/batch_inv.cu): other blocks of T threads of C lanes, and
 in degree 2 the norm recomputed in the down kernel in place of the one
 the up kernel stores.  For the wide NTT passes (csrc/ntt_wide.cu): radix
@@ -68,19 +73,36 @@ finish on the prep's flags, and both at level 2's 3,229,952 lanes on the
 even and odd lanes of a limb-major level (a parent build takes level 1's
 rows gathered, as its tree did); the G1 madd at 294,912 lanes through a
 table of 589,825 rows and a random slot index, and the G1 add at 294,912
-lanes, every lane on the fast leg; the batch inversion's three launches
+lanes, every lane on the fast leg; the G1 dbl at 16 lanes (the
+integrate's, by its C entry point on views made once, so that
+back-to-back launches time the device and not the wrapper) and at
+262,144 lanes; the G1 pair finish and prep at level 1 of the G1 tree 2^24,
+12,964,864 lanes through a table of 2 x 2^24 + 1 rows with ZERO_PAIRS'
+padding, the finish on the prep's flags, and the finish at level 2,
+6,482,432 lanes on the even and odd lanes of a limb-major level with the
+same share of copy or zero lanes; the batch inversion's three launches
 at the trees' level 1, 12,964,864 BLS12-381 Fp lanes and 6,459,904 Fp2
 lanes; the wide NTT's column pass at (8, 256, 262144), lg 8, and its row
 pass at (8, 256, 256, 1024), lg 10, out_t (the BLS12-381 Fr NTT 2^26's
 shapes); the 31-bit and the Goldilocks column passes at (2048, 8192), lg
 11, times the middle matrix, and their row passes at (2048, 8192), lg
 13, out_t (the NTT 2^24's shapes; Goldilocks on any 64-bit words).  Two
-rounds in opposite orders; each output equals the committed kernel's
-word for word.  The probes are one field op of each base-field element
+rounds in opposite orders, each time over back-to-back calls that fill
+at least 20 ms (_events_ms); each output equals the committed kernel's
+word for word.  With --parent and both of ec_pair and ec_xyzz chosen,
+the G1 tree MSM 2^24 (chip_smoke.py's input: 2^11 random points tiled,
+seeded scalar words) runs through the entry point on the committed
+libraries and on the parent's, in the order parent, committed,
+committed, parent: the wall time of an invoke (median of 3), then one
+invoke under torch.profiler for its device busy ms, the pair finish's
+device ms and the dbl's device microseconds a launch; the results equal
+each other.  The probes are one field op of each base-field element
 at N = 8 and 12 (mul, sqr, add, sub, and a copy for the loads and stores
 around it) and one Goldilocks op (mul, add, sub, canon, and a copy) in a
 kernel of its own, whose SASS counts give the instructions of one op.
 The committed kernels' own registers are printed by chip_smoke.py.
+--sass also prints, for each point kernel, the memory instructions
+before its first IMAD.WIDE (the order of its loads).
 Nothing of the port calls this module.
 """
 
@@ -106,6 +128,13 @@ from .ntt.parameters import get_parameters
 from .params import get_curve, get_field
 
 ADD_LANES, FINISH_LANES, MADD_LANES = 147_456, 6_459_904, 294_912
+#: the G1 tree 2^24's level 1 (INV_LANES) and its point table; level 2
+G1_TABLE_ROWS = (2 << 24) + 1
+G1_L2_LANES = 6_482_432
+#: the G1 dbl: the integrate's lanes, and a wide shape
+DBL_LANES, DBL_WIDE_LANES = 16, 1 << 18
+#: the G1 tree MSM the --parent run times end to end
+TREE_LG = 24
 #: the G2 tree 2^23's point table: 2 n + 1 rows, the last the zero row
 TABLE_ROWS = (2 << 23) + 1
 #: the shares of level-1 lanes with both slots padding (the zero row) and
@@ -117,8 +146,16 @@ INV_LANES = 12_964_864          # the G1 tree's level 1; G2's: FINISH_LANES
 #: the point kernels by their template's op number (csrc/ec_kernel.cuh)
 OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
 BOUNDS = "__launch_bounds__(THREADS)"
-#: the G1 madd and add's (csrc/ec_kernel.cuh: min3::ec_kernel)
-MIN3 = "__launch_bounds__(THREADS, 3)"
+#: the minimum of blocks an SM of the G1 carry-chain kernels: the pair
+#: finish's, then the madd, add and dbl's (csrc/ec_kernel.cuh:
+#: cc_min_blocks; 0 launches the kernel with none)
+FINISH_BLOCKS, XYZZ_BLOCKS = 4, 3
+CC_BLOCKS = f"OP == PAIR_FINISH ? {FINISH_BLOCKS} : {XYZZ_BLOCKS}"
+
+
+def _cc_blocks(finish=FINISH_BLOCKS, xyzz=XYZZ_BLOCKS):
+    """A substitution of the G1 carry-chain kernels' minimums of blocks."""
+    return (CC_BLOCKS, f"OP == PAIR_FINISH ? {finish} : {xyzz}")
 #: the point kernels' sources (csrc/<source>.cu)
 POINT_SOURCES = ("ec_xyzz", "ec_pair", "ec_fp2_madd", "ec_fp2_add",
                  "ec_fp2_dbl", "ec_fp2_pair")
@@ -204,14 +241,30 @@ def _blocks(k):
     return (BOUNDS, f"__launch_bounds__(THREADS, {k})")
 
 
+def _blocks_name(source, k):
+    return f"{source}, " + (f"{k} block{'s' * (k > 1)}" if k else
+                            "no minimum")
+
+
 def variants():
     """{name: (source, [(old, new) text substitutions])}; the name says
     what differs from the committed build."""
     out = {"ec_xyzz on mont::Fp": ("ec_xyzz", [
         ("ec::dispatch<mont::FpCC, ec::", "ec::dispatch<mont::Fp, ec::")]),
-        "ec_xyzz, no minimum": ("ec_xyzz", [(MIN3, BOUNDS)]),
-        **{f"ec_xyzz, {k} block{'s' * (k > 1)}": ("ec_xyzz", [
-            (MIN3, f"__launch_bounds__(THREADS, {k})")]) for k in (1, 2)}}
+        **{_blocks_name("ec_xyzz", k): ("ec_xyzz", [_cc_blocks(xyzz=k)])
+           for k in (0, 1, 2, 3) if k != XYZZ_BLOCKS},
+        "ec_pair on mont::Fp": ("ec_pair", [
+            ("ec::dispatch<mont::FpCC, ec::PAIR_FINISH",
+             "ec::dispatch<mont::Fp, ec::PAIR_FINISH")]),
+        **{_blocks_name("ec_pair", k): ("ec_pair", [_cc_blocks(finish=k)])
+           for k in (0, 3, 4, 5) if k != FINISH_BLOCKS},
+        "ec_pair inv on active lanes": ("ec_pair", [
+            ("E inv = load<E>(a.in[4], i);",
+             "E inv = f & pair::ACTIVE ? load<E>(a.in[4], i)\n"
+             "                                    : mont::Elem<E>::zero();")]),
+        "ec_pair staged": ("ec_pair", [
+            ("constexpr bool staged = mont::Elem<E>::THREADS == 2;",
+             "constexpr bool staged = true;")])}
     for source, op in (("ec_fp2_add", "ADD"), ("ec_fp2_pair", "PAIR_FINISH"),
                        ("ec_fp2_pair", "PAIR_PREP")):
         what = " prep" if op == "PAIR_PREP" else ""
@@ -323,12 +376,12 @@ def _registers(log):
     out, entry = [], None
     for line in log.splitlines():
         m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi12EEELi"
-                      r"(\d)E", line)
+                      r"(\d)ELb([01])E", line)
         k = re.search(r"(inv_up|inv_down)ILi12ELi(\d)E", line)
         w = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?(?:Mont32|Gl64))",
                       line)
         if "Compiling entry function" in line:
-            entry = (f"{m.group(1)}<12>,{OPS[int(m.group(2))]}" if m else
+            entry = (_point_name(*m.groups()) if m else
                      f"{k.group(1)}<12,{k.group(2)}>" if k else
                      f"{w.group(1)}_kernel<{_elem(w.group(2))}>" if w
                      else None)
@@ -363,12 +416,20 @@ def _elem(arg):
         else "Mont32"
 
 
+def _point_name(elem, op, table):
+    """A point kernel's short name: its element at N = 12, its op, and
+    ",table" for the build that reads a tree's first level through the
+    index."""
+    return f"{elem}<12>,{OPS[int(op)]}" + (",table" if table == "1" else "")
+
+
 def _sass_name(mangled):
     """A short name for a point kernel or a probe at N = 12, a wide NTT
     kernel at N = 8 or a mont32 NTT kernel, else None."""
-    m = re.search(r"ec_kernelIN4mont\d+(\w+?)ILi12EEELi(\d)E", mangled)
+    m = re.search(r"ec_kernelIN4mont\d+(\w+?)ILi12EEELi(\d)ELb([01])E",
+                  mangled)
     if m:
-        return f"{m.group(1)}<12>,{OPS[int(m.group(2))]}"
+        return _point_name(*m.groups())
     m = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?(?:Mont32|Gl64))",
                   mangled)
     if m:
@@ -380,12 +441,14 @@ def _sass_name(mangled):
 def sass_counts(lib):
     """{kernel: {class: static instruction count}} from `cuobjdump -sass`
     of a built library: the N = 12 point kernels, the N = 8 wide NTT
-    kernels and the probes, NOPs left out."""
+    kernels and the probes, NOPs left out; for a kernel with carry-chain
+    products, also its global loads before and after the first
+    IMAD.WIDE.U32.X (the order of its loads)."""
     tool = shutil.which("cuobjdump") or str(
         Path(_build.nvcc()).parent / "cuobjdump")
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    out, name = {}, None
+    out, name, chain = {}, None, set()
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -396,9 +459,16 @@ def sass_counts(lib):
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)", line)
         if name and m and m.group(1) != "NOP":
-            out[name][_sass_class(m.group(1))] += 1
+            op = m.group(1)
+            out[name][_sass_class(op)] += 1
             out[name]["all"] += 1
-    return out
+            if op.startswith("IMAD.WIDE.U32.X"):
+                chain.add(name)
+            if op.startswith("LDG"):
+                key = "LDG after" if name in chain else "LDG before"
+                out[name][key] = out[name].get(key, 0) + 1
+    return {k: {**v, "LDG after": v.get("LDG after", 0)} if k in chain
+            else v for k, v in out.items()}
 
 
 def _sass_line(what, counts):
@@ -501,17 +571,26 @@ def _load(path, source):
     return lib
 
 
-def _events_ms(fn, reps=20):
+def _events_ms(fn, reps=20, window_ms=20.0):
+    """Device ms a call over back-to-back calls between two CUDA events,
+    after a warm-up call; the count of calls grows until they take at
+    least `window_ms`, so that a short kernel is not timed in the few
+    milliseconds in which the card's clock is still rising."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
+    while True:
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        stop.synchronize()
+        ms = start.elapsed_time(stop)
+        if ms >= window_ms or reps >= 1 << 14:
+            return ms / reps
+        reps = min(1 << 14, reps * max(2, int(window_ms / max(ms, 0.01))
+                                       + 1))
 
 
 def _words(p, n32, shape, rng, dev):
@@ -525,6 +604,87 @@ def _words(p, n32, shape, rng, dev):
 def _fp2(p, n32, shape, rng, dev):
     return torch.cat([_words(p, n32, shape, rng, dev),
                       _words(p, n32, shape, rng, dev)])
+
+
+def _bare_dbl(curve, p):
+    """ec_xyzz_dbl on the G1 point p by its C entry point, on views and an
+    output made once, so that back-to-back calls time the device where the
+    wrapper's host time (~0.04 ms a call) would hide it at a few lanes;
+    the library is looked up at each call, so a variant's takes its
+    place.  Returns the call, which returns [output]."""
+    n32, n = p[0].shape
+    out = torch.empty((4 * n32, n), dtype=torch.int32, device=p[0].device)
+    views = np.zeros(5 * len(p), dtype=np.int64)
+    for k, c in enumerate(p):
+        views[5 * k:5 * k + 3] = (c.data_ptr(), c.stride(0), c.stride(1))
+    args = (n32, views.ctypes.data, out.data_ptr(), n,
+            EK._consts(curve).ctypes.data,
+            torch.cuda.current_stream().cuda_stream)
+    EK._lib("ec_xyzz_dbl")
+
+    def call(_keep=(p, views)):     # what args points to lives with call
+        if _build._libs["ec_xyzz"].ec_xyzz_dbl(*args):
+            raise RuntimeError("ec_xyzz_dbl: launch failed")
+        return [out]
+    return call
+
+
+def tree_times(dev, card, parent):
+    """The G1 tree MSM 2^TREE_LG (BLS12-381) through the entry point on the
+    committed libraries of ec_pair and ec_xyzz and on the parent's
+    (`parent`: {source: library}), in the order parent, committed,
+    committed, parent: each an invoke's wall time (median of 3, after one
+    invoke checked against the first), then one invoke under
+    torch.profiler: the device's busy ms, the pair finish's device ms and
+    launches and the dbl's device microseconds a launch.  The input and
+    the profile's reading are chip_smoke.py's (msm_input,
+    profile_breakdown)."""
+    import chip_smoke as CS
+    from torch.profiler import ProfilerActivity, profile
+    from .msm import MSMContext
+
+    curve = "bls12_381"
+    t0 = time.perf_counter()
+    _, pts, _, wd = CS.msm_input(curve, TREE_LG, dev)
+    ctx = MSMContext(curve, 1 << TREE_LG, mode="tree")
+    ctx.set_points(pts)
+    del pts
+    EK._lib("ec_pair_finish")
+    EK._lib("ec_xyzz_dbl")
+    committed = {s: _build._libs[s] for s in parent}
+    print(f"tree G1 2^{TREE_LG}: input and points set in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    first = None
+    try:
+        for which in ("parent", "committed", "committed", "parent"):
+            _build._libs.update(parent if which == "parent" else committed)
+            got = ctx.invoke(wd)
+            first = got if first is None else first
+            if got != first:
+                raise RuntimeError(f"tree G1 2^{TREE_LG}: the {which} "
+                                   f"libraries give another result")
+            wall = CS.wall_ms(lambda: ctx.invoke(wd), reps=3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                ctx.invoke(wd)
+                torch.cuda.synchronize()
+                t_prof = (time.perf_counter() - t1) * 1e3
+            busy, _, by_kernel, _ = CS.profile_breakdown(prof)
+            fin = by_kernel.get("ec_pair_finish", (0.0, 0))
+            dbl = by_kernel.get("ec_xyzz_dbl", (0.0, 0))
+            print(f"tree G1 2^{TREE_LG} on the {which} ec_pair and ec_xyzz: "
+                  f"wall {wall:.4f} ms (median of 3); profiled invoke: "
+                  f"device busy {busy:.4f} of {t_prof:.4f} ms, "
+                  f"ec_pair_finish {fin[0]:.4f} device ms ({fin[1]} "
+                  f"launches), ec_xyzz_dbl {dbl[0]:.4f} device ms ("
+                  f"{dbl[1]} launches, "
+                  f"{dbl[0] / max(dbl[1], 1) * 1e3:.2f} us a launch)  "
+                  f"[{card}]", flush=True)
+    finally:
+        _build._libs.update(committed)
+    del ctx, wd
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -546,7 +706,7 @@ def main():
         parent, args = args[1], args[2:]
     t0 = time.perf_counter()
     chosen = {name: v for name, v in every.items()
-              if (args or [""])[0] in name
+              if any(a in name for a in args or [""])
               and f"T {FK.INV_THREADS} C {FK.INV_CHUNK}" not in name}
     if parent:
         chosen.update({f"{s} parent": (s, []) for s in sorted(
@@ -574,13 +734,16 @@ def main():
             print(_sass_line(f"{source} committed {k}", c) + f"  [{card}]")
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    if {"ec_pair parent", "ec_xyzz parent"} <= set(libs):
+        tree_times(dev, card, {s: libs[f"{s} parent"]
+                               for s in ("ec_pair", "ec_xyzz")})
 
     cp = get_curve("bls12_381_g2")
     p, n32 = cp.field.modulus, cp.field.n_ref_limbs
     W = 2 * n32
     rng = np.random.default_rng(8)
     sources = {v[0] for v in chosen.values()}
-    if sources - {"ntt_wide", "ntt_mont32", "ntt_gl64"}:
+    if sources & {"ec_fp2_add", "ec_fp2_pair", "ec_xyzz", "batch_inv"}:
         pt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
         qt = tuple(_fp2(p, n32, (ADD_LANES,), rng, dev) for _ in range(4))
         # level 1 of the G2 tree: the point table and a random row a side,
@@ -618,6 +781,41 @@ def main():
         d1 = _words(p, n32, (INV_LANES,), rng, dev)
         d2 = _fp2(p, n32, (FINISH_LANES,), rng, dev)
         nr = cp.fp2.nr_small
+    g = np.random.default_rng(15)
+    if "ec_pair" in sources:
+        # level 1 of the G1 tree 2^24: a random row of its point table a
+        # side, the padding as the tree lays it out (ZERO_PAIRS); BLS12-381
+        # G1's base field is the G2 curve's
+        tab1 = torch.cat([_words(p, n32, (G1_TABLE_ROWS,), g, dev)
+                          for _ in range(2)]).T.contiguous()
+        tab1[-1] = 0
+        table1 = (tab1[:, :n32].T, tab1[:, n32:].T)
+        i1 = g.integers(0, G1_TABLE_ROWS - 1, size=(2, INV_LANES))
+        u = g.random(INV_LANES)
+        i1[1, u < sum(ZERO_PAIRS)] = i1[0, u < ZERO_PAIRS[0]] = \
+            G1_TABLE_ROWS - 1
+        i1 = torch.from_numpy(i1.astype(np.int32)).to(dev)
+        ix1 = (i1[0], i1[1])
+        inv1 = _words(p, n32, (INV_LANES,), g, dev)
+        flags1 = EK.affine_pair_prep("bls12_381", table1, table1, ix1)[1]
+        # level 2: the even and odd lanes of a limb-major level, the same
+        # share of zero pairs
+        X1, Y1 = (_words(p, n32, (2 * G1_L2_LANES,), g, dev)
+                  for _ in range(2))
+        u = g.random(G1_L2_LANES)
+        for side, share in ((0, ZERO_PAIRS[0]), (1, sum(ZERO_PAIRS))):
+            lanes = torch.from_numpy(
+                np.flatnonzero(u < share) * 2 + side).to(dev)
+            X1[:, lanes] = 0
+            Y1[:, lanes] = 0
+        l21, r21 = (X1[:, 0::2], Y1[:, 0::2]), (X1[:, 1::2], Y1[:, 1::2])
+        inv21 = _words(p, n32, (G1_L2_LANES,), g, dev)
+        flags21 = EK.affine_pair_prep("bls12_381", l21, r21)[1]
+    if "ec_xyzz" in sources:
+        dbl16 = _bare_dbl("bls12_381", tuple(
+            _words(p, n32, (DBL_LANES,), g, dev) for _ in range(4)))
+        dblw = tuple(_words(p, n32, (DBL_WIDE_LANES,), g, dev)
+                     for _ in range(4))
     if "ntt_wide" in sources:
         pw = get_parameters(WIDE_FIELD, dev)
         fr = get_field(WIDE_FIELD)
@@ -655,6 +853,14 @@ def main():
                                              g1_idx),
              "ec_xyzz_add": lambda: EK.xyzz_add("bls12_381", g1[:4],
                                                 g1[4:]),
+             "ec_xyzz_dbl": lambda: dbl16(),
+             "ec_xyzz_dbl_wide": lambda: EK.xyzz_dbl("bls12_381", dblw),
+             "ec_pair": lambda: EK.affine_pair_finish(
+                 "bls12_381", table1, table1, inv1, flags1, ix1),
+             "ec_pair_prep": lambda: EK.affine_pair_prep(
+                 "bls12_381", table1, table1, ix1),
+             "ec_pair_l2": lambda: EK.affine_pair_finish(
+                 "bls12_381", l21, r21, inv21, flags21),
              "batch_inv": lambda: [FK.mont_batch_inv(d1, cp.field)],
              "batch_inv_fp2": lambda: [FK.mont_batch_inv(d2, cp.field, 2,
                                                          nr)],
@@ -683,10 +889,13 @@ def main():
                                                      inv, flags),
         "ec_fp2_pair_prep": lambda: EK.affine_pair_prep("bls12_381_g2", l,
                                                         r)}
-    # the other calls of a source: batch_inv's in degree 2, ec_xyzz's add,
-    # the NTT sources' row passes, ec_fp2_pair's prep at levels
-    # 1 and 2 and its finish at level 2
+    # the other calls of a source: batch_inv's in degree 2, ec_xyzz's add
+    # and dbl, the NTT sources' row passes, ec_fp2_pair's prep at levels
+    # 1 and 2 and its finish at level 2, ec_pair's prep at level 1 and its
+    # finish at level 2
     twins = {"batch_inv_fp2": "batch_inv", "ec_xyzz_add": "ec_xyzz",
+             "ec_xyzz_dbl": "ec_xyzz", "ec_xyzz_dbl_wide": "ec_xyzz",
+             "ec_pair_prep": "ec_pair", "ec_pair_l2": "ec_pair",
              "ntt_wide_rows": "ntt_wide", "ntt_mont32_rows": "ntt_mont32",
              "ntt_gl64_rows": "ntt_gl64", "ntt_gl64_ntt": "ntt_gl64",
              "ntt_gl64_rows_natural": "ntt_gl64",
@@ -739,9 +948,17 @@ def main():
                 "ec_fp2_pair_prep_l2": FINISH_LANES // 2,
                 "ec_fp2_pair_l2": FINISH_LANES // 2,
                 "ec_xyzz": MADD_LANES, "ec_xyzz_add": MADD_LANES,
+                "ec_xyzz_dbl": DBL_LANES, "ec_xyzz_dbl_wide": DBL_WIDE_LANES,
+                "ec_pair": INV_LANES, "ec_pair_prep": INV_LANES,
+                "ec_pair_l2": G1_L2_LANES,
                 "batch_inv": INV_LANES,
                 "batch_inv_fp2": FINISH_LANES}
     shape_of = {k: f"{v} lanes" for k, v in shape_of.items()}
+    for k, what in (("ec_pair", "level 1 through the index"),
+                    ("ec_pair_prep", "level 1 through the index"),
+                    ("ec_pair_l2", "level 2 in place"),
+                    ("ec_xyzz_dbl", "by its C entry point")):
+        shape_of[k] += f", {what}"
     shape_of["ntt_wide"] = f"{WIDE_COLS[0]}, lg {WIDE_COLS[1]}"
     shape_of["ntt_wide_rows"] = f"{WIDE_ROWS[0]}, lg {WIDE_ROWS[1]}, out_t"
     shape_of["ntt_mont32"] = (f"{NARROW_COLS[0]}, lg {NARROW_COLS[1]}, "

@@ -584,12 +584,15 @@ def _table_index(n, rows, seed, dev):
 
 @pytest.mark.parametrize("curve", CC_CURVES)
 def test_carry_chain_madd_add_vs_plain(dev, curve):
-    """The G1 madd and add on the carry-chain element against their plain
-    versions word for word: an empty bucket, the affine point at infinity
-    (the table's zero row), equal points (the doubling leg), opposite
-    points, coordinates p - 1 and p - 2, and a warp with no special lane;
-    then the madd through a table and its slot index (negated rows, the
-    zero row, repeated rows) against the plain gather and madd."""
+    """The G1 madd, add and dbl on the carry-chain element against their
+    plain versions word for word: an empty bucket, the affine point at
+    infinity (the table's zero row), equal points (the doubling leg),
+    opposite points, coordinates p - 1 and p - 2, and a warp with no
+    special lane; then the madd through a table and its slot index
+    (negated rows, the zero row, repeated rows) against the plain gather
+    and madd; the dbl at 16 lanes (the integrate's shape: ZZ == 0, Y == 0
+    and the p - 1 / p - 2 lanes among them) and at 4097 lanes (the 96
+    lanes tiled: a block past the end)."""
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ec.core import get_curve_ops
     from sppark_tpu_torch.ff import kernels as FK
@@ -616,9 +619,48 @@ def test_carry_chain_madd_add_vs_plain(dev, curve):
     assert all(torch.equal(u, v) for u, v in zip(
         want, EK.xyzz_madd_plain(curve, p, tuple(
             c.index_select(1, idx) for c in table))))
+    for lanes in (torch.arange(32, 48), torch.arange(4097) % 96):
+        pw = tuple(c.index_select(1, lanes.to(dev)) for c in p)
+        got = EK.xyzz_dbl(curve, pw)
+        torch.cuda.synchronize()
+        want = EK.xyzz_dbl_plain(curve, pw)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), len(lanes)
     assert {k: v - before[k] for k, v in EK.launches.items()} == {
-        "ec_xyzz_madd": 3, "ec_xyzz_add": 2, "ec_xyzz_dbl": 0,
+        "ec_xyzz_madd": 3, "ec_xyzz_add": 2, "ec_xyzz_dbl": 2,
         "ec_pair_prep": 0, "ec_pair_finish": 0}
+
+
+def test_g1_carry_chain_launch_refuses_p_without_spare_bit(dev):
+    """The G1 point kernels on the carry-chain element (madd, add, dbl,
+    pair finish) need p < 2^255 at n32 = 8: constants of p = 2^256 - 189
+    (prime, top bit set) are refused at the C entry point with
+    cudaErrorInvalidValue, where Pallas's launch; the pair prep, on
+    mont::Fp, takes both."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.kernels import int_words
+
+    p = (1 << 256) - 189
+    bad = np.asarray(int_words(p, 8) + int_words((1 << 256) % p, 8)
+                     + [0] * 8 + [-pow(p, -1, 1 << 32) % (1 << 32), 0],
+                     dtype=np.uint32)
+    good = FK.field_consts(params.get_field("pallas"))
+    x = torch.zeros((8, 4), dtype=torch.int32, device=dev)
+    out = torch.empty((32, 4), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, n_in, refused in (("ec_xyzz_madd", 6, True),
+                                ("ec_xyzz_add", 8, True),
+                                ("ec_xyzz_dbl", 4, True),
+                                ("ec_pair_finish", 6, True),
+                                ("ec_pair_prep", 4, False)):
+        views = np.zeros(5 * n_in, dtype=np.int64)
+        for k in range(n_in):
+            views[5 * k:5 * k + 3] = (x.data_ptr(), x.stride(0), 1)
+        fn = getattr(EK._lib(name), name)
+        for consts, rc in ((bad, int(refused)), (good, 0)):
+            assert fn(8, views.ctypes.data, out.data_ptr(), 4,
+                      consts.ctypes.data, stream) == rc, name
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("curve", ["test_bm64_g2", "bn254_g2",
