@@ -70,14 +70,16 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      shapes, beside the plain versions (on a 2^20-element slice) and the
      bounds, and reads the peak device memory of one NTT;
  14. holds the three fp2 point kernels (ec_fp2_xyzz_madd and _add, on a
-     lane pair of threads per point, / dbl) against their plain versions
+     lane pair of threads per point, / dbl, on a lane pair of carry-chain
+     threads) against their plain versions
      on test_bm64_g2, BN254, BLS12-381 and BLS12-377 G2 (nonresidues 7,
      -1, -1, -5), exactly, with the planted lanes of phase 6, point-major
      rows, a gather table and a slot index, a warp with no special lane,
      warps of 16 buckets with
      exactly one doubling pair and one pair at infinity (madd), warps of
      16 lanes with exactly one doubling, infinite or cancelling lane
-     (add), and 1, 17 and 65 lanes;
+     (add), warps of 16 lanes with exactly one Y == 0 or ZZ == 0 lane or
+     none (dbl), and 1, 17 and 65 lanes;
  15. drives the G2 main path, BLS12-381 G2 2^23 (the reference bench's G2
      size) through `MSMContext.set_points` + `invoke`, with the launch
      counts set to 0 just before and read just after: 2^11 base points
@@ -89,8 +91,9 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      BLS12-377 G1 MSM of 64 points against `msm_naive`;
  16. times the G2 MSM, profiles one invoke (peak memory, busy share,
      phases) and times each fp2 kernel alone at its main-path shapes
-     beside its plain version and its bound, and prints the G2 phases'
-     seconds;
+     beside its plain version and its bound, the dbl also at 2^18 lanes,
+     prints the dbl's device microseconds a launch in the profiled invoke
+     and its registers and spills, and the G2 phases' seconds;
  17. holds the four batch-affine pair kernels (ec_pair_prep / _finish,
      ec_fp2_pair_prep / _finish) against their plain versions on
      test_bm64, Pasta, BLS12-381 and the four G2 curves, exactly: planted
@@ -162,7 +165,25 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      the trace LDE with their parts, and each mont32 kernel alone at its 2^24
      shapes beside its plain version, its bound and its registers and
      spills, and prints the narrow phases' seconds;
- 26. prints one JSON line of the numbers, one of the kernels, the run's
+ 26. drives the MSM mode "xyzz" (MSMRoundStages: one madd launch a
+     round through the table index) on phase 7's BLS12-381 G1 2^24 input
+     and phase 15's G2 2^23 input, each with the launch counts set to 0
+     just before and read just after, equal to its exact result, G1 also
+     chunked; at 2^10 (G2 2^8) msm_naive with planted scalars (0, r - 1,
+     r // 2 + 1, doubling and cancelling terms), Montgomery-form scalars,
+     and for G1 the plain path on the card at 8-bit windows on the first
+     2^6 of those points; prints the
+     rounds and the madd launches, and times and profiles each invoke
+     (wall, device busy, phases, kernels, no index_select in its gather);
+ 27. drives the mode "affine" (five launches a round: the pair prep, the
+     batch inversion's three, the pair finish, reading the point through
+     the table index) the same way on BLS12-381 G1 and G2 2^20, equal to
+     the exact results of the tiled inputs; both modes with all-equal
+     scalars at 2^12 (rounds = n) against msm_naive; and batch_addition
+     on the BLS12-381 G1 2^20 input with a seeded bitmap and refmap
+     against the oracle sum of the tiled base, the empty selection, its
+     launches and time;
+ 28. prints one JSON line of the numbers, one of the kernels, the run's
      seconds, the card's name and power limit, and last {"ok": true,
      "device": {...}}.
 Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
@@ -217,6 +238,8 @@ PASTA_CURVE, PASTA_LG = "pallas", 20     # BASELINE config 3
 LG_BASE = 11        # distinct points, tiled (the reference bench protocol)
 LG_SMALL = 10       # the msm_naive and plain-path checks
 PLAIN_WBITS = 4     # the plain path's windows: few buckets, a short integrate
+ROUND_PLAIN_WBITS = 8   # the round modes' plain path: few rounds
+ROUND_PLAIN_LG = 6      # on the first 2^6 of the small check's points
 EC_CURVES = ("test_bm64", "pallas", "bls12_381")
 POW_LANES = (1, 31, 32, 33, 1 << 16)    # bigmont_pow's checks: prefixes
 DBL_WIDE_LANES = 1 << 18    # the G1 dbl timed at a wide shape too
@@ -466,30 +489,36 @@ def reset_all():
 
 def read_all(curve, mode="auto"):
     """The launch counts of the kernels a curve's MSM runs in `mode`: its
-    degree's point kernels of the slab (madd, add, dbl) or of the tree
-    (pair prep and finish, add, dbl), and the Montgomery multiply."""
+    degree's point kernels of the slab and mode "xyzz" (madd, add, dbl) or
+    of the tree and mode "affine" (pair prep and finish, add, dbl), and
+    the field kernels."""
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
-    ops = EK.TREE_OPS if mode == "tree" else EK.SLAB_OPS
+    ops = EK.TREE_OPS if mode in ("tree", "affine") else EK.SLAB_OPS
     counts = {**EK.launches, **EK.fp2_launches}
     names = [EK.kernel_name(op, curve) for op in ops]
     return {**{k: counts[k] for k in names}, **FK.launches}
 
 
+#: msm_naive of msm_main's small checks, by (curve, lg_small, the first
+#: base point): the modes of one curve share them
+NAIVE = {}
+
+
 def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL,
              mode="auto"):
-    """Phases 7/8/15/18: the MSM of 2^lg in `mode` through the entry
-    points, launch counts around it, and its checks: `exact(words)` is the
-    exact result (default: tiled_oracle over the drawn points), the small
-    checks run at 2^lg_small (the tree's also with all-equal scalars).
-    Returns (ctx, words on the device, launches, the exact result, the
-    base points)."""
+    """Phases 7/8/15/18/26/27: the MSM of 2^lg in `mode` through the
+    entry points, launch counts around it, and its checks: `exact(words)`
+    is the exact result (default: tiled_oracle over the drawn points), the
+    small checks run at 2^lg_small (the tree's also with all-equal
+    scalars).  Returns (ctx, words on the device, launches, the exact
+    result, the base points)."""
     import torch
     from sppark_tpu_torch.ec import get_curve_ops
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.ff import kernels as FK
     from sppark_tpu_torch.msm import MSMContext, MSMSlabStages, MSMTreeStages
-    from sppark_tpu_torch.msm import pippenger, slab
+    from sppark_tpu_torch.msm import MSMRoundStages, pippenger, slab
     from sppark_tpu_torch.oracle.ec import get_oracle
     from sppark_tpu_torch.oracle.msm import msm_naive
     from sppark_tpu_torch.params import get_curve
@@ -503,7 +532,15 @@ def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL,
     ctx = MSMContext(curve, n, mode=mode)
     ctx.set_points(pts)
     tree = mode == "tree"
-    if tree:
+    rounds = mode in ("xyzz", "affine")
+    if rounds:
+        st = ctx.stages
+        print(f"{curve} 2^{lg} mode {mode}: wbits {ctx.wbits}, nwins "
+              f"{ctx.nwins}, {st.nwins * st.nbuckets} bucket lanes, the "
+              f"top window spread over {st.k_spread} replicas of "
+              f"{st.top_span} buckets, rounds {st.schedule(wd)[-1]}",
+              flush=True)
+    elif tree:
         m0, lmax, wg = ctx.stages.plan(ctx.stages.schedule(wd)[-1])
         print(f"{curve} 2^{lg} tree: wbits {ctx.wbits}, nwins {ctx.nwins}, "
               f"m0 {m0} slots per window, lmax {lmax} levels, {wg} "
@@ -524,7 +561,8 @@ def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL,
           flush=True)
     check(all(v > 0 for v in launches.values()),
           f"MSM {curve} 2^{lg} ({mode}) went through "
-          + ("pair prep, pair finish" if tree else "madd")
+          + ("pair prep, pair finish" if tree or mode == "affine"
+             else "madd")
           + ", add, dbl and the Montgomery multiply")
     t0 = time.perf_counter()
     want = exact(words) if exact else tiled_oracle(curve, base, words)
@@ -548,12 +586,15 @@ def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL,
     spts[7] = o.affine_neg(spts[6])         # cancels in its bucket
     rng = random.Random(3)
     sc = [rng.randrange(r) for _ in range(m)]
-    sc[:8] = [0, r - 1, 7, 11, 2, 2, 3, 3]
-    want_s = msm_naive(cp, spts, sc)
+    sc[:9] = [0, r - 1, 7, 11, 2, 2, 3, 3, r // 2 + 1]
+    key = (curve, lg_small, base[0].x, base[0].y)
+    if key not in NAIVE:
+        NAIVE[key] = msm_naive(cp, spts, sc)
+    want_s = NAIVE[key]
     ctx_s = MSMContext(curve, m, mode=mode)
     check(ctx_s.invoke(sc, points=spts) == want_s,
           f"MSM {curve} 2^{lg_small} ({mode}) == msm_naive (0, r-1, "
-          f"doubling and cancelling terms)")
+          f"r // 2 + 1, doubling and cancelling terms)")
     mont = scalar_words([cp.scalar.to_mont(s) for s in sc], ctx_s.n_words,
                         dev)
     check(ctx_s.invoke(mont, points=spts, mont=True) == want_s,
@@ -565,19 +606,25 @@ def msm_main(curve, lg, dev, full, base=None, exact=None, lg_small=LG_SMALL,
               f"MSM {curve} 2^{lg_small} ({mode}) with all-equal scalars "
               f"== msm_naive (one bucket per window holds every point)")
     if full:
-        wbits = PLAIN_WBITS
+        # the round modes' plain path on the first 2^ROUND_PLAIN_LG points
+        # at 8-bit windows: a few rounds (each affine round inverts on the
+        # plain path), a short integrate
+        wbits = ROUND_PLAIN_WBITS if rounds else PLAIN_WBITS
+        m_p = 1 << ROUND_PLAIN_LG if rounds else m
+        want_p = msm_naive(cp, spts[:m_p], sc[:m_p]) if rounds else want_s
         nwins = (cp.scalar.bits + wbits - 1) // wbits
-        stages = MSMTreeStages if tree else MSMSlabStages
+        stages = (pippenger._STAGES[mode] if rounds else
+                  MSMTreeStages if tree else MSMSlabStages)
         st = stages(curve, wbits, nwins, ctx_s.n_words, kern=EK.PLAIN)
         F = get_curve_ops(curve, FK.PLAIN).F
         rows = slab.point_rows(F, *get_curve_ops(curve).affine_from_ints(
-            spts, dev))
+            spts[:m_p], dev))
         t0 = time.perf_counter()
-        wx, wy = st(scalar_words(sc, ctx_s.n_words, dev), rows)
+        wx, wy = st(scalar_words(sc[:m_p], ctx_s.n_words, dev), rows)
         plain = pippenger.collect(cp, wbits, nwins, wx, wy)
-        check(plain == want_s, f"MSM {curve} 2^{lg_small} ({mode}) on the "
-                               f"plain path on the card, {wbits}-bit "
-                               f"windows, == msm_naive "
+        check(plain == want_p, f"MSM {curve} 2^{m_p.bit_length() - 1} "
+                               f"({mode}) on the plain path on the card, "
+                               f"{wbits}-bit windows, == msm_naive "
                                f"({time.perf_counter() - t0:.1f} s)")
     return ctx, wd, launches, want, base
 
@@ -639,10 +686,13 @@ def sqr_ops(n32):
 
 
 MSM_RANGES = ("msm.schedule", "msm.gather", "msm.madd_rounds", "msm.fold",
-              "msm.tree_levels", "msm.extract", "msm.integrate",
-              "msm.to_affine")
+              "msm.tree_levels", "msm.extract", "msm.affine_rounds",
+              "msm.integrate", "msm.to_affine")
 #: the point kernels by their template's op number (csrc/ec_kernel.cuh)
 EC_OPS = ("xyzz_madd", "xyzz_add", "xyzz_dbl", "pair_prep", "pair_finish")
+#: the point kernels' elements (csrc/mont.cuh, csrc/mont_cc.cuh), longest
+#: name first
+EC_ELEMS = "Fp2PairCC|Fp2Pair|Fp2CC|FpCC|Fp2|Fp"
 
 
 def point_kernel(mangled):
@@ -650,7 +700,7 @@ def point_kernel(mangled):
     a profile's: "ec_kernel<FpCC<12>,pair_finish,table>" (",table": the
     build that reads a tree's first level through the index); None for
     another kernel."""
-    m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi(\d+)EEELi"
+    m = re.search(r"ec_kernelIN4mont\d+(" + EC_ELEMS + r")ILi(\d+)EEELi"
                   r"(\d)ELb([01])E", mangled)
     if not m:
         return None
@@ -661,7 +711,7 @@ def point_kernel(mangled):
 
 def kernel_group(name):
     """A device event's name, the point and field kernels by their op."""
-    m = re.search(r"ec_kernel<mont::(FpCC|Fp2Pair|Fp2|Fp)<\d+>, ?(\d)[,>]",
+    m = re.search(r"ec_kernel<mont::(" + EC_ELEMS + r")<\d+>, ?(\d)[,>]",
                   name)
     if m:
         return ("ec_" if m.group(1) in ("Fp", "FpCC") else "ec_fp2_") + \
@@ -795,7 +845,7 @@ def msm_times(ctx, wd, curve, lg, card):
     phases, by kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from sppark_tpu_torch.msm import MSMTreeStages
+    from sppark_tpu_torch.msm import MSMRoundStages, MSMTreeStages
 
     n = 1 << lg
     t_msm = wall_ms(lambda: ctx.invoke(wd), reps=3)
@@ -820,7 +870,10 @@ def msm_times(ctx, wd, curve, lg, card):
              else "device busy time not measured (no device events)")
           + f"  [{card}]", flush=True)
     stats = ctx.stages.schedule(wd)[-1]
-    if isinstance(ctx.stages, MSMTreeStages):
+    if isinstance(ctx.stages, MSMRoundStages):
+        shape = (f"rounds {stats} (mode {ctx.stages.mode}, the top window "
+                 f"in {ctx.stages.k_spread} replicas)")
+    elif isinstance(ctx.stages, MSMTreeStages):
         m0, lmax, wg = ctx.stages.plan(stats)
         shape = f"m0 {m0}, lmax {lmax}, {wg} window(s) per group"
     else:
@@ -836,9 +889,9 @@ def msm_times(ctx, wd, curve, lg, card):
           + ", ".join(f"{k} {ms:.4f} ({c})" for k, (ms, c) in sorted(
               by_kernel.items(), key=lambda kv: -kv[1][0])[:12])
           + f"  [{card}]", flush=True)
-    # the slab's and the tree's gather build an index: no index_select over
-    # the point table, whose rows the madd and level 1's pair kernels read
-    # through the index
+    # the slab's, the tree's and the round modes' gather build an index:
+    # no index_select over the point table, whose rows the madd and the
+    # pair kernels read through the index
     gather = sorted(launched["msm.gather"])
     print(f"MSM {curve} 2^{lg} kernels in msm.gather: {gather}", flush=True)
     if busy > 0:
@@ -1482,10 +1535,12 @@ def g2_base(curve, nbase, seed):
     return G, ks, pts
 
 
-def g2_phases(dev, card, rate):
-    """Phases 14-16.  Returns (the fp2 kernels' entries of the summary
-    line, the phases' numbers, the main path's base points and exact
-    result, for the tree in phase 18)."""
+def g2_phases(dev, card, rate, logs):
+    """Phases 14-16; `logs`: {source: nvcc log} of the sources built in
+    this run.  Returns (the fp2 kernels' entries of the summary line, the
+    phases' numbers, the main path's base points, exact result and exact
+    function of its words, for the tree in phase 18 and the round modes
+    in phases 26-27)."""
     import torch
     from sppark_tpu_torch.ec import kernels as EK
     from sppark_tpu_torch.msm import MSMContext
@@ -1547,6 +1602,14 @@ def g2_phases(dev, card, rate):
             pw, qw = (tuple(c[:, lanes] for c in t) for t in (p, q))
             same("ec_fp2_xyzz_add", EK.xyzz_add(curve, pw, qw),
                  EK.xyzz_add_plain(curve, pw, qw), f"{curve} add, {what}")
+        # and the dbl, on carry chains: warps with exactly one Y == 0 lane,
+        # one ZZ == 0 lane, or none
+        for what, lanes in one_special_warps(
+                (("one Y == 0 lane", 38), ("one ZZ == 0 lane", 36),
+                 ("no special lane", 5))):
+            pw = tuple(c[:, lanes] for c in p)
+            same("ec_fp2_xyzz_dbl", EK.xyzz_dbl(curve, pw),
+                 EK.xyzz_dbl_plain(curve, pw), f"{curve} dbl, {what}")
     seconds["14 kernels vs plain"] = time.perf_counter() - t0
 
     # -- 15. main path: BLS12-381 G2 2^23 --------------------------------------
@@ -1590,9 +1653,32 @@ def g2_phases(dev, card, rate):
     t_msm, peak, resident, busy, t_prof, phases, by_kernel = msm_times(
         ctx, wd, G2_CURVE, G2_LG, card)
     N = cp.field.n_ref_limbs
-    cases, _ = point_kernel_cases(G2_CURVE, ctx, wd,
-                                  *fp2_ops(N, cp.fp2.nr_small))
+    M, S, A = fp2_ops(N, cp.fp2.nr_small)
+    cases, _ = point_kernel_cases(G2_CURVE, ctx, wd, M, S, A)
+    # the dbl at a wide shape, every lane on the fast leg (random
+    # coordinates), against its operations bound
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    F = get_field_ops(cp.field)
+    g = np.random.default_rng(16)
+    wide = tuple(torch.cat([rand_canon(F, DBL_WIDE_LANES, g, dev)
+                            for _ in range(2)]) for _ in range(4))
+    dbl_ops = 6 * M + 3 * S + 7 * A
+    cases += [
+        (f"ec_fp2_xyzz_dbl 2^{DBL_WIDE_LANES.bit_length() - 1}",
+         DBL_WIDE_LANES, lambda: EK.xyzz_dbl(G2_CURVE, wide),
+         lambda: EK.xyzz_dbl_plain(G2_CURVE, wide),
+         8 * 4 * 2 * N * DBL_WIDE_LANES, DBL_WIDE_LANES * dbl_ops)]
     timing = time_kernels(cases, same, rate, card)
+    del wide
+    dbl = by_kernel.get("ec_fp2_xyzz_dbl", (0.0, 0))
+    regs = ptxas_summary(logs.get("ec_fp2_dbl", ""), point_kernel)
+    print(f"ec_fp2_xyzz_dbl in the G2 slab {G2_CURVE} 2^{G2_LG}: "
+          f"{dbl[0] / max(dbl[1], 1) * 1e3:.2f} device us a launch ("
+          f"{dbl[1]} launches, the profiled invoke); one lane's 6M + 3S + "
+          f"7A in fp2, {dbl_ops} operations; ec_kernel<Fp2PairCC<{N}>,"
+          f"xyzz_dbl>: " + regs.get(f"ec_kernel<Fp2PairCC<{N}>,xyzz_dbl>",
+                                    "registers: not rebuilt in this run")
+          + f"  [{card}]", flush=True)
     seconds["16 times"] = time.perf_counter() - t0
     print(f"G2 phases' seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
@@ -1600,7 +1686,8 @@ def g2_phases(dev, card, rate):
                "g2_kernels_ms_launches": by_kernel, "g2_peak_gib": peak,
                "g2_resident_gib": resident,
                "g2_device_busy_ms": busy, "g2_profiled_wall_ms": t_prof,
-               "g2_launches": launches, "g2_phase_seconds": seconds}
+               "g2_launches": launches, "g2_phase_seconds": seconds,
+               "g2_dbl_wide_ms": timing[cases[-1][0]][0]}
     line = {"ec_fp2_xyzz_madd": 387, "ec_fp2_xyzz_add": 224,
             "ec_fp2_xyzz_dbl": 336}
     entries = []
@@ -1614,7 +1701,7 @@ def g2_phases(dev, card, rate):
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
             "library_ms": None})
-    return entries, numbers, (base, want)
+    return entries, numbers, (base, want, exact)
 
 
 # -- tree MSM phases (17-19) --------------------------------------------------------
@@ -2010,7 +2097,7 @@ def tree_phases(dev, card, rate, g1, g2, pow_err, logs):
         exact=lambda words: want, mode="tree")
     seconds["18 G1 tree and checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    base2, want2 = g2
+    base2, want2 = g2[:2]
     ctx2, wd2, launches2, _, _ = msm_main(
         G2_CURVE, TREE_G2_LG, dev, full=False, base=base2,
         exact=lambda words: want2, lg_small=LG_SMALL_G2, mode="tree")
@@ -2658,6 +2745,140 @@ def narrow_phases(dev, card, rate, build_log=""):
     return entries, numbers
 
 
+# -- MSM round modes (26-27) ------------------------------------------------------
+
+ROUND_LG = 20           # mode "affine"'s main paths and batch_addition
+ROUND_EQUAL_LG = 12     # all-equal scalars: rounds = n
+
+
+def round_phases(dev, card, rate, g1, g2):
+    """Phases 26-27: the MSM modes "xyzz" and "affine" (MSMRoundStages)
+    and batch_addition through the entry points, each path with the
+    launch counts set to 0 just before and read just after.  `g1`, `g2`:
+    the G1 and G2 main paths' (base points, exact result[, exact function
+    of the words]).  Returns (the phases' numbers, the paths' launches
+    summed by kernel)."""
+    import torch
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import MSMContext, batch_addition
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.oracle.msm import msm_naive
+    from sppark_tpu_torch.params import get_curve
+
+    numbers, seconds, total = {}, {}, {}
+
+    def path(key, curve, lg, launches, ctx, wd):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        t_msm, peak, _, busy, t_prof, phases, by_kernel = msm_times(
+            ctx, wd, curve, lg, card)
+        numbers.update({f"{key}_msm_ms": t_msm, f"{key}_peak_gib": peak,
+                        f"{key}_device_busy_ms": busy,
+                        f"{key}_profiled_wall_ms": t_prof,
+                        f"{key}_phases_device_host_ms": phases,
+                        f"{key}_kernels_ms_launches": by_kernel,
+                        f"{key}_launches": launches})
+
+    # -- 26. mode xyzz: G1 2^24 on phase 7's input, G2 2^23 on phase 15's ---
+    base, want = g1
+    base2, want2, exact2 = g2
+    for mode, lgs in (("xyzz", (MSM_LG, G2_LG)), ("affine", (ROUND_LG,) * 2)):
+        # -- 27. mode affine at 2^20: the tiled G1 and G2 inputs ------------
+        for curve, lg, b, exact, small, full in (
+                (MSM_CURVE, lgs[0], base,
+                 (lambda w: want) if lgs[0] == MSM_LG else None, LG_SMALL,
+                 True),
+                (G2_CURVE, lgs[1], base2, (lambda w: want2)
+                 if lgs[1] == G2_LG else exact2, LG_SMALL_G2, False)):
+            t0 = time.perf_counter()
+            ctx, wd, launches, _, _ = msm_main(
+                curve, lg, dev, full=full, base=b, exact=exact,
+                lg_small=small, mode=mode)
+            op = "xyzz_madd" if mode == "xyzz" else "pair_prep"
+            print(f"MSM {curve} 2^{lg} mode {mode}: rounds "
+                  f"{ctx.stages.schedule(wd)[-1]}, {EK.kernel_name(op, curve)}"
+                  f" launches {launches[EK.kernel_name(op, curve)]}",
+                  flush=True)
+            key = f"{mode}_{'g1' if curve == MSM_CURVE else 'g2'}"
+            path(key, curve, lg, launches, ctx, wd)
+            del ctx, wd
+            torch.cuda.empty_cache()
+            seconds[f"{key} 2^{lg}"] = time.perf_counter() - t0
+
+    # all-equal scalars: 8 points tiled to 2^12, one bucket a window holds
+    # every point
+    t0 = time.perf_counter()
+    cp = get_curve(MSM_CURVE)
+    r = cp.scalar.modulus
+    n = 1 << ROUND_EQUAL_LG
+    pts = [base[i % 8] for i in range(n)]
+    pts[3] = get_oracle(cp).infinity_affine()
+    k = random.Random(26).randrange(r)
+    want_eq = msm_naive(cp, base[:8], [k * (n // 8 - (j == 3)) % r
+                                       for j in range(8)])
+    for mode in ("xyzz", "affine"):
+        ctx = MSMContext(MSM_CURVE, n, mode=mode)
+        ctx.set_points(pts)
+        wd = scalar_words([k] * n, ctx.n_words, dev)
+        rounds = ctx.stages.schedule(wd)[-1]
+        check(rounds == n, f"MSM {MSM_CURVE} 2^{ROUND_EQUAL_LG} mode {mode}, "
+                           f"all-equal scalars: rounds {rounds} == n")
+        check(ctx.invoke(wd) == want_eq,
+              f"MSM {MSM_CURVE} 2^{ROUND_EQUAL_LG} mode {mode}, all-equal "
+              f"scalars == msm_naive")
+        ms = wall_ms(lambda: ctx.invoke(wd), reps=1)
+        numbers[f"{mode}_all_equal_2^{ROUND_EQUAL_LG}_ms"] = ms
+        print(f"time MSM {MSM_CURVE} 2^{ROUND_EQUAL_LG} mode {mode}, all-"
+              f"equal scalars ({rounds} rounds): {ms:.4f} ms (wall)  "
+              f"[{card}]", flush=True)
+    seconds["all-equal"] = time.perf_counter() - t0
+
+    # batch_addition at 2^20: a seeded bitmap and refmap over the tiled
+    # G1 input, against the oracle sum of the base with each point's signed
+    # selections summed; the empty selection
+    t0 = time.perf_counter()
+    n = 1 << ROUND_LG
+    _, (px, py), _, _ = msm_input(MSM_CURVE, ROUND_LG, dev, base)
+    g = np.random.default_rng(27)
+    bits = g.integers(0, 2, size=n)
+    refs = g.integers(0, 2, size=n)
+    coef = bits * (1 - 2 * refs)
+    coef[3] = 0                                     # the infinity
+    nb = len(base)
+    sums = [int(s) % r for s in coef.reshape(-1, nb).sum(axis=0)]
+    want_ba = msm_naive(cp, base, sums)
+    reset_all()
+    got = batch_addition(MSM_CURVE, (px, py), bits, refs)
+    torch.cuda.synchronize()
+    ba_launches = {k: v for k, v in {**EK.launches, **FK.launches}.items()
+                   if v}
+    check(got == want_ba, f"batch_addition {MSM_CURVE} 2^{ROUND_LG} with a "
+                          f"seeded bitmap and refmap == the oracle sum")
+    check(ba_launches.get("ec_xyzz_madd", 0) > 0
+          and ba_launches.get("ec_xyzz_add", 0) > 0,
+          f"batch_addition {MSM_CURVE} 2^{ROUND_LG} went through the madd "
+          f"and the add")
+    for kname, v in ba_launches.items():
+        total[kname] = total.get(kname, 0) + v
+    check(batch_addition(MSM_CURVE, (px, py), np.zeros(n, np.int64)).inf,
+          f"batch_addition {MSM_CURVE} 2^{ROUND_LG}, the empty selection "
+          f"== infinity")
+    ms = wall_ms(lambda: batch_addition(MSM_CURVE, (px, py), bits, refs),
+                 reps=3)
+    numbers["batch_addition_ms"] = ms
+    numbers["batch_addition_launches"] = ba_launches
+    print(f"time batch_addition {MSM_CURVE} 2^{ROUND_LG}: {ms:.4f} ms "
+          f"(median of 3, wall); launches {ba_launches}  [{card}]",
+          flush=True)
+    del px, py
+    seconds["batch_addition"] = time.perf_counter() - t0
+    numbers["round_phase_seconds"] = seconds
+    print(f"round phases' seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
+    return numbers, total
+
+
 def main():
     import torch
 
@@ -2694,7 +2915,7 @@ def main():
             if m:
                 args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
                 entry = m.group(1) + (f"<{','.join(args)}>" if args else "")
-            m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi(\d+)"
+            m = re.search(r"ec_kernelIN4mont\d+(" + EC_ELEMS + r")ILi(\d+)"
                           r"EEELi(\d)E", line)
             if m:
                 entry = (f"ec_kernel<{m.group(1)}<{m.group(2)}>,"
@@ -2937,14 +3158,17 @@ def main():
     torch.cuda.empty_cache()
     wide_entries, wide_numbers = wide_phases(dev, card, rate)
     torch.cuda.empty_cache()
-    g2_entries, g2_numbers, g2_input = g2_phases(dev, card, rate)
+    g2_entries, g2_numbers, g2_input = g2_phases(dev, card, rate, logs)
     torch.cuda.empty_cache()
     tree_entries, tree_numbers, tree_launches = tree_phases(
         dev, card, rate, g1_input, g2_input, pow_err, logs)
-    del g1_input, g2_input
     torch.cuda.empty_cache()
     narrow_entries, narrow_numbers = narrow_phases(
         dev, card, rate, info.get("ntt_mont32", {}).get("log", ""))
+    torch.cuda.empty_cache()
+    round_numbers, round_launches = round_phases(dev, card, rate, g1_input,
+                                                 g2_input)
+    del g1_input, g2_input
     # the Montgomery kernels run on all four MSM paths, whose counts were
     # read apart: the G1 and G2 slabs', then the two trees'; the point
     # kernels of the slabs' entries also run in the trees' integrate
@@ -2957,8 +3181,12 @@ def main():
             e["launches"] = sum(run[e["name"]] for run in paths)
         elif e in msm_entries + g2_entries and e["name"] in tree_launches:
             e["launches"] += tree_launches[e["name"]]
+    # the round modes' and batch_addition's paths run the point and field
+    # kernels of the slab and the tree
+    for e in msm_entries + g2_entries + tree_entries:
+        e["launches"] += round_launches.get(e["name"], 0)
 
-    # -- 26. summary -----------------------------------------------------------
+    # -- 28. summary -----------------------------------------------------------
     src = "sppark_tpu_torch/csrc/ntt_gl64.cu"
     kernels_line = {"kernels": [
         {"name": "gl64_ntt_rows", "route": "cuda", "source": src,
@@ -2981,6 +3209,7 @@ def main():
                       "lde_parts_ms": parts, "ntt_launches": ntt_launches,
                       "lde_launches": lde_launches, **wide_numbers,
                       **g2_numbers, **tree_numbers, **narrow_numbers,
+                      **round_numbers,
                       "seconds": time.perf_counter() - t_start,
                       "card": card}))
     print(json.dumps(kernels_line))

@@ -5,7 +5,8 @@
 // element (mont::FpCC<N>, mont_cc.cuh), the G1 pair prep on mont::Fp<N>.
 // The G2 madd, add, pair prep and pair finish run on the lane pair
 // (mont::Fp2Pair<N>: thread 2i holds c0 of lane i, thread 2i + 1 holds
-// c1); the G2 dbl keeps one thread a lane (mont::Fp2<N>).
+// c1), the G2 dbl on the lane pair over the carry-chain element
+// (mont::Fp2PairCC<N>, mont_cc.cuh).
 //
 // Operands: each input coordinate is a (W, n) view, W = N words for Fp<N>
 // and 2 N for the fp2 elements (c0's words, then c1's), given by a pointer
@@ -132,10 +133,23 @@ __device__ __forceinline__ void load(const View& v, long long i, int w0,
     load<TABLE>(v, i, w0 + N, r.c1);
 }
 
+template <bool TABLE = false, int N>
+__device__ __forceinline__ void load(const View& v, long long i, int w0,
+                                     mont::Fp2CC<N>& r) {
+    load<TABLE>(v, i, w0, r.c0);
+    load<TABLE>(v, i, w0 + N, r.c1);
+}
+
 // a lane pair: the even thread reads c0's words, the odd thread c1's
 template <bool TABLE = false, int N>
 __device__ __forceinline__ void load(const View& v, long long i, int w0,
                                      mont::Fp2Pair<N>& r) {
+    load<TABLE>(v, i, w0 + (mont::pair_odd() ? N : 0), r.v);
+}
+
+template <bool TABLE = false, int N>
+__device__ __forceinline__ void load(const View& v, long long i, int w0,
+                                     mont::Fp2PairCC<N>& r) {
     load<TABLE>(v, i, w0 + (mont::pair_odd() ? N : 0), r.v);
 }
 
@@ -179,6 +193,20 @@ template <int N>
 __device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
                                       long long row,
                                       const mont::Fp2Pair<N>& a) {
+    store(out, n, i, row + (mont::pair_odd() ? N : 0), a.v);
+}
+
+template <int N>
+__device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
+                                      long long row, const mont::Fp2CC<N>& a) {
+    store(out, n, i, row, a.c0);
+    store(out, n, i, row + N, a.c1);
+}
+
+template <int N>
+__device__ __forceinline__ void store(uint32_t* out, long long n, long long i,
+                                      long long row,
+                                      const mont::Fp2PairCC<N>& a) {
     store(out, n, i, row + (mont::pair_odd() ? N : 0), a.v);
 }
 
@@ -406,7 +434,8 @@ inline bool indexed(const void* views) {
 }
 
 // The launch for base width n32 of element family F (mont::Fp,
-// mont::FpCC, mont::Fp2 or mont::Fp2Pair): N = 2, 8 or 12; another width is
+// mont::FpCC, mont::Fp2, mont::Fp2CC, mont::Fp2Pair or mont::Fp2PairCC):
+// N = 2, 8 or 12; another width is
 // refused.  views: [pointer, sw, sl, index or 0, the index's table rows]
 // per input coordinate.
 template <template <int> class F, int OP, bool TABLE = false>

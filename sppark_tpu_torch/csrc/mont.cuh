@@ -99,6 +99,22 @@ MONT_HD Fp<N> from_words(const uint32_t* w) {
     return r;
 }
 
+// What generic code (xyzz.cuh, ec_kernel.cuh) needs of an element type
+// beyond the overloaded ops: its zero, a base-field constant embedded in
+// it, its base width, the threads that hold one element and the words of
+// one element in memory.
+template <class E>
+struct Elem;
+
+template <int N>
+struct Elem<Fp<N>> {
+    static constexpr int BASE = N, THREADS = 1, WORDS = N;
+    static MONT_HD Fp<N> zero() { return mont::zero<N>(); }
+    static MONT_HD Fp<N> embed(const uint32_t* w) {
+        return from_words<N>(w);
+    }
+};
+
 template <int N>
 MONT_HD bool is_zero(const Fp<N>& a) {
     uint32_t acc = 0;
@@ -341,11 +357,12 @@ MONT_HD Fp2<N> sub(const Fp2<N>& a, const Fp2<N>& b, const Consts<N>& c) {
     return Fp2<N>{sub(a.c0, b.c0, c), sub(a.c1, b.c1, c)};
 }
 
-// k * t for a small k >= 0, by doubling and adding.
-template <int N>
-MONT_HD Fp<N> times(const Fp<N>& t, int k, const Consts<N>& c) {
+// k * t for a small k >= 0, by doubling and adding; B is a base-field
+// element, Fp<N> or mont_cc.cuh's FpCC<N>.
+template <class B, int N>
+MONT_HD B times(const B& t, int k, const Consts<N>& c) {
     if (k == 1) return t;
-    Fp<N> m = zero<N>(), run = t;
+    B m = Elem<B>::zero(), run = t;
     for (; k; k >>= 1) {
         if (k & 1) m = add(m, run, c);
         if (k > 1) run = add(run, run, c);
@@ -354,35 +371,84 @@ MONT_HD Fp<N> times(const Fp<N>& t, int k, const Consts<N>& c) {
 }
 
 // k * t for a small signed k.
-template <int N>
-MONT_HD Fp<N> times_signed(const Fp<N>& t, int k, const Consts<N>& c) {
-    Fp<N> m = times(t, k < 0 ? -k : k, c);
-    return k < 0 ? sub(zero<N>(), m, c) : m;
+template <class B, int N>
+MONT_HD B times_signed(const B& t, int k, const Consts<N>& c) {
+    B m = times(t, k < 0 ? -k : k, c);
+    return k < 0 ? sub(Elem<B>::zero(), m, c) : m;
 }
 
 // t0 + nr * t1.
-template <int N>
-MONT_HD Fp<N> add_nr(const Fp<N>& t0, const Fp<N>& t1, const Consts<N>& c) {
-    Fp<N> m = times(t1, c.nr < 0 ? -c.nr : c.nr, c);
+template <class B, int N>
+MONT_HD B add_nr(const B& t0, const B& t1, const Consts<N>& c) {
+    B m = times(t1, c.nr < 0 ? -c.nr : c.nr, c);
     return c.nr < 0 ? sub(t0, m, c) : add(t0, m, c);
 }
 
+// The fp2 products over a base element B, each as the coefficients it
+// gives, so that the one-thread elements (Fp2 here, FpCC's Fp2CC in
+// mont_cc.cuh) and the lane-pair ones share them.
 // Karatsuba: c0 = a0 b0 + nr a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0 - a1 b1.
-template <int N>
-MONT_HD Fp2<N> mul(const Fp2<N>& a, const Fp2<N>& b, const Consts<N>& c) {
-    Fp<N> t0 = mul(a.c0, b.c0, c);
-    Fp<N> t1 = mul(a.c1, b.c1, c);
-    Fp<N> m = mul(add(a.c0, a.c1, c), add(b.c0, b.c1, c), c);
-    return Fp2<N>{add_nr(t0, t1, c), sub(sub(m, t0, c), t1, c)};
+template <class B, int N>
+MONT_HD void fp2_mul(const B& a0, const B& a1, const B& b0, const B& b1,
+                     B& c0, B& c1, const Consts<N>& c) {
+    B t0 = mul(a0, b0, c);
+    B t1 = mul(a1, b1, c);
+    B m = mul(add(a0, a1, c), add(b0, b1, c), c);
+    c0 = add_nr(t0, t1, c);
+    c1 = sub(sub(m, t0, c), t1, c);
 }
 
 // c0 = a0^2 + nr a1^2, c1 = 2 a0 a1.
+template <class B, int N>
+MONT_HD void fp2_sqr(const B& a0, const B& a1, B& c0, B& c1,
+                     const Consts<N>& c) {
+    B t0 = sqr(a0, c);
+    B t1 = sqr(a1, c);
+    B m = mul(a0, a1, c);
+    c0 = add_nr(t0, t1, c);
+    c1 = add(m, m, c);
+}
+
+// On a lane pair each thread computes its own coefficient from its own
+// words and its partner's (`odd`: this thread holds c1; a, b its own, ao,
+// bo the partner's).  A product is a dot product of two products with ONE
+// Montgomery reduction (dot): even c0 = a0 b0 + (nr a1) b1, odd c1 = a1 b0
+// + a0 b1; selects, not branches, pick the operands, so the pair stays
+// converged.
+template <class B, int N>
+MONT_HD B pair_mul(bool odd, const B& a, const B& ao, const B& b,
+                   const B& bo, const Consts<N>& c) {
+    B nra = times_signed(ao, c.nr, c);
+    return dot(select(odd, ao, a), b, select(odd, a, nra), bo, c);
+}
+
+// A square in two steps, one product a thread between them: first m, even
+// (a0 + a1)(a0 + nr a1), odd a0 a1; then from m and the partner's m (mo),
+// even c0 = m - (1 + nr) a0 a1, odd c1 = 2 m.
+template <class B, int N>
+MONT_HD B pair_sqr_prod(bool odd, const B& a, const B& ao,
+                        const Consts<N>& c) {
+    return mul(select(odd, ao, add(a, ao, c)),
+               select(odd, a, add(a, times_signed(ao, c.nr, c), c)), c);
+}
+
+template <class B, int N>
+MONT_HD B pair_sqr(bool odd, const B& m, const B& mo, const Consts<N>& c) {
+    return select(odd, add(m, m, c), sub(m, times_signed(mo, 1 + c.nr, c), c));
+}
+
+template <int N>
+MONT_HD Fp2<N> mul(const Fp2<N>& a, const Fp2<N>& b, const Consts<N>& c) {
+    Fp2<N> r;
+    fp2_mul(a.c0, a.c1, b.c0, b.c1, r.c0, r.c1, c);
+    return r;
+}
+
 template <int N>
 MONT_HD Fp2<N> sqr(const Fp2<N>& a, const Consts<N>& c) {
-    Fp<N> t0 = sqr(a.c0, c);
-    Fp<N> t1 = sqr(a.c1, c);
-    Fp<N> m = mul(a.c0, a.c1, c);
-    return Fp2<N>{add_nr(t0, t1, c), add(m, m, c)};
+    Fp2<N> r;
+    fp2_sqr(a.c0, a.c1, r.c0, r.c1, c);
+    return r;
 }
 
 // -- the quadratic extension on a lane pair ---------------------------------
@@ -405,11 +471,12 @@ struct Fp2Pair {
     Fp<N> v;    // c0 on the even thread of the pair, c1 on the odd
 };
 
-template <int N>
-MONT_D Fp<N> partner(const Fp<N>& a) {
-    Fp<N> r;
+// the partner's copy of a base element (Fp<N> or FpCC<N>)
+template <class B>
+MONT_D B partner(const B& a) {
+    B r;
 #pragma unroll
-    for (int i = 0; i < N; i++) r.w[i] = pair_swap(a.w[i]);
+    for (int i = 0; i < Elem<B>::BASE; i++) r.w[i] = pair_swap(a.w[i]);
     return r;
 }
 
@@ -436,50 +503,23 @@ MONT_D Fp2Pair<N> sub(const Fp2Pair<N>& a, const Fp2Pair<N>& b,
     return Fp2Pair<N>{sub(a.v, b.v, c)};
 }
 
-// even: c0 = a0 b0 + (nr a1) b1; odd: c1 = a1 b0 + a0 b1.  Each thread
-// holds its own a and b and receives the partner's; selects, not branches,
-// pick the operands, so the pair stays converged.
+// Each thread holds its own a and b and receives the partner's (pair_mul,
+// pair_sqr above).
 template <int N>
 MONT_D Fp2Pair<N> mul(const Fp2Pair<N>& a, const Fp2Pair<N>& b,
                        const Consts<N>& c) {
-    bool odd = pair_odd();
-    Fp<N> ao = partner(a.v), bo = partner(b.v);
-    Fp<N> nra = times_signed(ao, c.nr, c);
-    return Fp2Pair<N>{dot(select(odd, ao, a.v), b.v,
-                          select(odd, a.v, nra), bo, c)};
+    return Fp2Pair<N>{pair_mul(pair_odd(), a.v, partner(a.v), b.v,
+                               partner(b.v), c)};
 }
 
-// even: m = (a0 + a1)(a0 + nr a1), c0 = m - (1 + nr) a0 a1; odd: m = a0 a1,
-// c1 = 2 m.  One product a thread, the odd one's sent to the even.
 template <int N>
 MONT_D Fp2Pair<N> sqr(const Fp2Pair<N>& a, const Consts<N>& c) {
     bool odd = pair_odd();
-    Fp<N> ao = partner(a.v);
-    Fp<N> m = mul(select(odd, ao, add(a.v, ao, c)),
-                  select(odd, a.v, add(a.v, times_signed(ao, c.nr, c), c)),
-                  c);
-    Fp<N> t = partner(m);
-    return Fp2Pair<N>{select(odd, add(m, m, c),
-                             sub(m, times_signed(t, 1 + c.nr, c), c))};
+    Fp<N> m = pair_sqr_prod(odd, a.v, partner(a.v), c);
+    return Fp2Pair<N>{pair_sqr(odd, m, partner(m), c)};
 }
 
 #endif  // __CUDACC__
-
-// What generic code (xyzz.cuh, ec_kernel.cuh) needs of an element type
-// beyond the overloaded ops: its zero, a base-field constant embedded in
-// it, its base width, the threads that hold one element and the words of
-// one element in memory.
-template <class E>
-struct Elem;
-
-template <int N>
-struct Elem<Fp<N>> {
-    static constexpr int BASE = N, THREADS = 1, WORDS = N;
-    static MONT_HD Fp<N> zero() { return mont::zero<N>(); }
-    static MONT_HD Fp<N> embed(const uint32_t* w) {
-        return from_words<N>(w);
-    }
-};
 
 template <int N>
 struct Elem<Fp2<N>> {

@@ -1,8 +1,10 @@
 // The carry-chain Montgomery element, mont::FpCC<N>: the element of the G1
-// point madd and add (ec_xyzz.cu), beside mont::Fp<N> of mont.cuh with the
-// same overloads (add, sub, mul, sqr, is_zero, select, Elem<>), so
-// xyzz.cuh's formulas take it unchanged.  The constants are mont.cuh's
-// Consts<N>.
+// point kernels but the pair prep (ec_xyzz.cu, ec_pair.cu), beside
+// mont::Fp<N> of mont.cuh with the same overloads (add, sub, mul, sqr, dot,
+// is_zero, select, Elem<>), so xyzz.cuh's formulas take it unchanged; and
+// its quadratic extensions, the lane pair Fp2PairCC<N> (the fp2 doubling,
+// ec_fp2_dbl.cu) and the one-thread Fp2CC<N>, on mont.cuh's fp2 formulas.
+// The constants are mont.cuh's Consts<N>.
 //
 // Its products run on PTX carry chains, as the reference's mont_t
 // (ff/mont_t.cuh:381-423, mad_n_redc): mad.lo.cc / madc.hi.cc, which
@@ -18,8 +20,11 @@
 //        chains, doubled by funnel shifts, plus the diagonal; then the
 //        Montgomery reduction of the low half on the two chains, plus the
 //        high half;
-//   N = 2 (test_bm64's p = 2^64 - 59, no spare bit): one chain over N + 2
-//        words of state, and sqr is mul(a, a);
+//   dot, a b + x y with one reduction: both products' rows on sqr's
+//        chains, then sqr's reduction (below, with its bounds);
+//   N = 2 (test_bm64's p = 2^64 - 59 and the Goldilocks prime of
+//        test_bm64_g2, no spare bit): one chain over N + 2 words of state,
+//        and sqr is mul(a, a);
 //   add, sub and the final subtraction: chains and a mask, no branch.
 // Every op takes canonical inputs (< p) and returns canonical output, so the
 // words a kernel stores equal mont::Fp's and the TPU kernels' exactly.
@@ -129,6 +134,27 @@ CC_HD void merge(uint32_t* even, const uint32_t* odd) {
 #pragma unroll
     for (int i = 1; i < N - 1; i++) even[i] = addc_cc(even[i], odd[i + 1]);
     even[N - 1] = addc(even[N - 1], 0);
+}
+
+// The Montgomery reduction of a 2N-word w (N >= 4): (w_lo + m p) / R <= p
+// by N reduction rows on the even / odd chains, plus w_hi, in w's low N
+// words, which it returns; the caller's bound on w_hi keeps the sum within
+// N words.
+template <int N>
+CC_HD uint32_t* redc_wide(uint32_t* w, const Consts<N>& c) {
+    uint32_t* even = w;
+    uint32_t odd[N];
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+        cios_row<N>(even, odd, nullptr, 0, c, i == 0);
+        cios_row<N>(odd, even, nullptr, 0, c, false);
+    }
+    merge<N>(even, odd);
+    even[0] = add_cc(even[0], w[N]);
+#pragma unroll
+    for (int i = 1; i < N - 1; i++) even[i] = addc_cc(even[i], w[N + i]);
+    even[N - 1] = addc(even[N - 1], w[2 * N - 1]);
+    return even;
 }
 
 }  // namespace cc
@@ -300,23 +326,108 @@ CC_HD FpCC<N> sqr(const FpCC<N>& a, const Consts<N>& c) {
         }
         w[2 * N - 2] = cc::madc_lo_cc(a.w[N - 1], a.w[N - 1], w[2 * N - 2]);
         w[2 * N - 1] = cc::madc_hi(a.w[N - 1], a.w[N - 1], w[2 * N - 1]);
-        // (w_lo + m p) / R <= p by N reduction rows, then + w_hi < 2p
-        uint32_t* even = w;
-        uint32_t odd[N];
-#pragma unroll
-        for (int i = 0; i < N; i += 2) {
-            cc::cios_row<N>(even, odd, nullptr, 0, c, i == 0);
-            cc::cios_row<N>(odd, even, nullptr, 0, c, false);
-        }
-        cc::merge<N>(even, odd);
-        even[0] = cc::add_cc(even[0], w[N]);
-#pragma unroll
-        for (int i = 1; i < N - 1; i++)
-            even[i] = cc::addc_cc(even[i], w[N + i]);
-        even[N - 1] = cc::addc(even[N - 1], w[2 * N - 1]);
-        return final_sub<N>(even, 0, c);
+        // (w_lo + m p) / R <= p, then + w_hi < p^2 / R: below 2p
+        return final_sub<N>(cc::redc_wide<N>(w, c), 0, c);
     } else {
         return mul(a, a, c);
+    }
+}
+
+// (a b + x y) R^-1 mod p with ONE Montgomery reduction (mont.cuh's dot, the
+// reference's dot_product, ff/mont_t.cuh:697-719): the fp2 lane pair's
+// product.
+//   N >= 4: the two products' 2N-word sum w on the even / odd chains of
+//        sqr's off-diagonal rows, then sqr's reduction.  With the spare
+//        bit, a, b, x, y < p < R / 2 give w <= 2 (p - 1)^2 < R^2 / 2: no
+//        chain's partial sum, and no half, leaves 2N words, and w_hi =
+//        floor(w / R) < 2 p^2 / R < p, so (w_lo + m p) / R + w_hi <= p +
+//        p - 1 < 2p and one final subtraction ends it;
+//   N = 2 (no spare bit): one chain over N + 2 words, each row adding a
+//        b_i and x y_i before its reduction.  The state stays below 3p:
+//        (t + a b_i + x y_i + m p) / 2^32 < (3p + 3p (2^32 - 1)) / 2^32 =
+//        3p < 2^66, within N + 2 words, so p is subtracted once where it
+//        fits, then the final subtraction, as mont.cuh's dot does.
+template <int N>
+CC_HD FpCC<N> dot(const FpCC<N>& a, const FpCC<N>& b, const FpCC<N>& x,
+                  const FpCC<N>& y, const Consts<N>& c) {
+    if constexpr (N >= 4) {
+        // a_i b_j at words (i + j, i + j + 1): into `ev` for even i + j,
+        // `od` for odd, one chain a row in each; x y's row i right after a
+        // b's.  A row's carry lands above its chain, on a word that holds
+        // at most the carries of the rows before it (row i's chains end
+        // at the word below the largest i + j of their parity plus one,
+        // which no earlier row's chain reaches); past word 2N - 1 it is 0.
+        uint32_t ev[2 * N], od[2 * N];
+#pragma unroll
+        for (int k = 0; k < 2 * N; k++) ev[k] = od[k] = 0;
+#pragma unroll
+        for (int i = 0; i < N; i++) {
+#pragma unroll
+            for (int prod = 0; prod < 2; prod++) {
+                const uint32_t* u = prod ? x.w : a.w;
+                const uint32_t* v = prod ? y.w : b.w;
+#pragma unroll
+                for (int j0 = 0; j0 < 2; j0++) {
+                    uint32_t* t = (i + j0) % 2 ? od : ev;
+                    t[i + j0] = cc::mad_lo_cc(u[i], v[j0], t[i + j0]);
+                    t[i + j0 + 1] = cc::madc_hi_cc(u[i], v[j0],
+                                                   t[i + j0 + 1]);
+                    int j = j0 + 2;
+#pragma unroll
+                    for (; j < N; j += 2) {
+                        t[i + j] = cc::madc_lo_cc(u[i], v[j], t[i + j]);
+                        t[i + j + 1] = cc::madc_hi_cc(u[i], v[j],
+                                                      t[i + j + 1]);
+                    }
+                    if (i + j < 2 * N) t[i + j] = cc::addc(t[i + j], 0);
+                }
+            }
+        }
+        // w = ev + od (od[0] is 0)
+        uint32_t w[2 * N];
+        w[0] = ev[0];
+        w[1] = cc::add_cc(ev[1], od[1]);
+#pragma unroll
+        for (int k = 2; k < 2 * N - 1; k++) w[k] = cc::addc_cc(ev[k], od[k]);
+        w[2 * N - 1] = cc::addc(ev[2 * N - 1], od[2 * N - 1]);
+        return final_sub<N>(cc::redc_wide<N>(w, c), 0, c);
+    } else {
+        uint32_t t[N + 2];
+#pragma unroll
+        for (int i = 0; i < N + 2; i++) t[i] = 0;
+#pragma unroll
+        for (int i = 0; i < 3 * N; i++) {
+            // rows a b_k, x y_k, then the reduction, for k = i / 3
+            int step = i % 3;
+            const uint32_t* u = step == 0 ? a.w : step == 1 ? x.w : c.p;
+            uint32_t v = step == 0 ? b.w[i / 3]
+                         : step == 1 ? y.w[i / 3] : t[0] * c.m0;
+            t[0] = cc::mad_lo_cc(u[0], v, t[0]);
+#pragma unroll
+            for (int j = 1; j < N; j++) t[j] = cc::madc_lo_cc(u[j], v, t[j]);
+            t[N] = cc::addc_cc(t[N], 0);
+            t[N + 1] = cc::addc(t[N + 1], 0);
+            t[1] = cc::mad_hi_cc(u[0], v, t[1]);
+#pragma unroll
+            for (int j = 1; j < N; j++)
+                t[j + 1] = cc::madc_hi_cc(u[j], v, t[j + 1]);
+            t[N + 1] = cc::addc(t[N + 1], 0);
+            if (step == 2) {    // word 0 is now 0
+#pragma unroll
+                for (int j = 0; j <= N; j++) t[j] = t[j + 1];
+                t[N + 1] = 0;
+            }
+        }
+        // t (t[N] the word above) < 3p: t - p where it does not borrow
+        uint32_t d[N];
+        d[0] = cc::sub_cc(t[0], c.p[0]);
+#pragma unroll
+        for (int i = 1; i < N; i++) d[i] = cc::subc_cc(t[i], c.p[i]);
+        uint32_t top = cc::subc(t[N], 0);      // all ones where t < p
+        uint32_t keep = (uint32_t)((int32_t)top >> 31);
+#pragma unroll
+        for (int i = 0; i < N; i++) d[i] = (t[i] & keep) | (d[i] & ~keep);
+        return final_sub<N>(d, top & ~keep, c);
     }
 }
 
@@ -336,5 +447,120 @@ struct Elem<FpCC<N>> {
         return r;
     }
 };
+
+// -- the quadratic extension over FpCC --------------------------------------
+
+// One thread a lane, both coefficients (mont.cuh's Fp2 on this element).
+template <int N>
+struct Fp2CC {
+    FpCC<N> c0, c1;
+};
+
+template <int N>
+CC_HD bool is_zero(const Fp2CC<N>& a) {
+    return is_zero(a.c0) && is_zero(a.c1);
+}
+
+template <int N>
+CC_HD Fp2CC<N> select(bool s, const Fp2CC<N>& a, const Fp2CC<N>& b) {
+    return Fp2CC<N>{select(s, a.c0, b.c0), select(s, a.c1, b.c1)};
+}
+
+template <int N>
+CC_HD Fp2CC<N> add(const Fp2CC<N>& a, const Fp2CC<N>& b, const Consts<N>& c) {
+    return Fp2CC<N>{add(a.c0, b.c0, c), add(a.c1, b.c1, c)};
+}
+
+template <int N>
+CC_HD Fp2CC<N> sub(const Fp2CC<N>& a, const Fp2CC<N>& b, const Consts<N>& c) {
+    return Fp2CC<N>{sub(a.c0, b.c0, c), sub(a.c1, b.c1, c)};
+}
+
+template <int N>
+CC_HD Fp2CC<N> mul(const Fp2CC<N>& a, const Fp2CC<N>& b, const Consts<N>& c) {
+    Fp2CC<N> r;
+    fp2_mul(a.c0, a.c1, b.c0, b.c1, r.c0, r.c1, c);
+    return r;
+}
+
+template <int N>
+CC_HD Fp2CC<N> sqr(const Fp2CC<N>& a, const Consts<N>& c) {
+    Fp2CC<N> r;
+    fp2_sqr(a.c0, a.c1, r.c0, r.c1, c);
+    return r;
+}
+
+template <int N>
+struct Elem<Fp2CC<N>> {
+    static constexpr int BASE = N, THREADS = 1, WORDS = 2 * N;
+    static CC_HD Fp2CC<N> zero() {
+        return Fp2CC<N>{Elem<FpCC<N>>::zero(), Elem<FpCC<N>>::zero()};
+    }
+    static CC_HD Fp2CC<N> embed(const uint32_t* w) {
+        return Fp2CC<N>{Elem<FpCC<N>>::embed(w), Elem<FpCC<N>>::zero()};
+    }
+};
+
+// The lane pair on the carry chains (mont.cuh's Fp2Pair on this element,
+// the fp2 doubling's): thread 2i holds c0 of lane i, thread 2i + 1 holds
+// c1.  A product is one carry-chain dot a thread (pair_mul), a square one
+// carry-chain product (pair_sqr_prod); the zero test reads both
+// coefficients, so every branch on it is pair-uniform.
+#ifdef __CUDACC__
+template <int N>
+struct Fp2PairCC {
+    FpCC<N> v;      // c0 on the even thread of the pair, c1 on the odd
+};
+
+template <int N>
+MONT_D bool is_zero(const Fp2PairCC<N>& a) {
+    uint32_t z = is_zero(a.v);
+    return z & pair_swap(z);
+}
+
+template <int N>
+MONT_D Fp2PairCC<N> select(bool s, const Fp2PairCC<N>& a,
+                           const Fp2PairCC<N>& b) {
+    return Fp2PairCC<N>{select(s, a.v, b.v)};
+}
+
+template <int N>
+MONT_D Fp2PairCC<N> add(const Fp2PairCC<N>& a, const Fp2PairCC<N>& b,
+                        const Consts<N>& c) {
+    return Fp2PairCC<N>{add(a.v, b.v, c)};
+}
+
+template <int N>
+MONT_D Fp2PairCC<N> sub(const Fp2PairCC<N>& a, const Fp2PairCC<N>& b,
+                        const Consts<N>& c) {
+    return Fp2PairCC<N>{sub(a.v, b.v, c)};
+}
+
+template <int N>
+MONT_D Fp2PairCC<N> mul(const Fp2PairCC<N>& a, const Fp2PairCC<N>& b,
+                        const Consts<N>& c) {
+    return Fp2PairCC<N>{pair_mul(pair_odd(), a.v, partner(a.v), b.v,
+                                 partner(b.v), c)};
+}
+
+template <int N>
+MONT_D Fp2PairCC<N> sqr(const Fp2PairCC<N>& a, const Consts<N>& c) {
+    bool odd = pair_odd();
+    FpCC<N> m = pair_sqr_prod(odd, a.v, partner(a.v), c);
+    return Fp2PairCC<N>{pair_sqr(odd, m, partner(m), c)};
+}
+
+template <int N>
+struct Elem<Fp2PairCC<N>> {
+    static constexpr int BASE = N, THREADS = 2, WORDS = 2 * N;
+    static MONT_D Fp2PairCC<N> zero() {
+        return Fp2PairCC<N>{Elem<FpCC<N>>::zero()};
+    }
+    static MONT_D Fp2PairCC<N> embed(const uint32_t* w) {
+        return Fp2PairCC<N>{select(pair_odd(), Elem<FpCC<N>>::zero(),
+                                   Elem<FpCC<N>>::embed(w))};
+    }
+};
+#endif  // __CUDACC__
 
 }  // namespace mont

@@ -26,8 +26,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..ff.bigmont import get_field_ops
 from ..ff.ext import get_fp2_ops
+from ..ff.lane import get_base_ops
 from ..ff.kernels import KERNELS, FieldKernels
 from ..oracle.ec import AffinePoint
 from ..params import CurveParams, get_curve
@@ -39,7 +39,7 @@ class CurveOps:
     def __init__(self, curve: CurveParams, kern: FieldKernels = KERNELS):
         self.curve = curve
         self.degree = curve.degree
-        self.F = (get_field_ops(curve.field, kern) if curve.fp2 is None
+        self.F = (get_base_ops(curve.field, kern) if curve.fp2 is None
                   else get_fp2_ops(curve.fp2, kern))
 
     def _sel(self, cond, a, b):

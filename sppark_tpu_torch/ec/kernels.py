@@ -26,7 +26,12 @@ coordinates, read through an int32 index of one row per lane: the madd's
 affine point (the slab MSM's point table and slot index, msm/slab.py)
 and the pair kernels' l and r on a tree's first level (the same table,
 through the even and odd halves of the tree's level-0 index,
-msm/tree.py), read by the kernels in place of a gathered copy.
+msm/tree.py), read by the kernels in place of a gathered copy; the
+pair kernels' r alone may be a table, l then per-lane (the affine MSM
+mode's rounds: the buckets, and each bucket's next point through the
+table).  The test curves over the one-word fields (ff/lane.py) have no
+kernel: their wrappers run the plain versions on every device, as the JAX
+package runs those curves through no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 
 from .. import _build
 from ..ff import kernels as FK
+from ..ff.lane import is_lane_field
 from ..params import get_curve
 from ..util.errors import SpparkError
 from .core import get_curve_ops
@@ -154,6 +160,19 @@ def _on_cpu(coords) -> bool:
     return all(c.device.type == "cpu" for c in coords)
 
 
+@functools.lru_cache(maxsize=None)
+def has_kernels(curve: str) -> bool:
+    """Whether `curve`'s point ops have kernels: a multi-limb Montgomery
+    base field.  A test curve over a one-word field has none."""
+    return not is_lane_field(get_curve(curve).field)
+
+
+def _plain(curve: str, coords) -> bool:
+    """Whether a wrapper runs its plain version: on CPU tensors, or for
+    a curve with no kernels on any device."""
+    return _on_cpu(coords) or not has_kernels(curve)
+
+
 def _check_idx(name: str, table, idx, lanes) -> None:
     """Refuse a table index a kernel cannot take: other than a 1-D int32
     tensor of the lane count on the table's device, or a table other than
@@ -179,13 +198,23 @@ def _check_idx(name: str, table, idx, lanes) -> None:
 def _check_pair_idx(name: str, l, r, idx, lanes=()) -> None:
     """Refuse what the indexed pair kernels cannot take: idx other than a
     pair (idx_l, idx_r) of equal length, each an index _check_idx takes
-    into its table (l, r)."""
+    into its table (l, r); or idx_l None, l then per-lane coordinates of
+    idx_r's length, not broadcast."""
     if not isinstance(idx, (tuple, list)) or len(idx) != 2:
         raise TypeError(f"{name}: idx must be a pair (idx_l, idx_r)")
+    if idx[0] is None:
+        _check_idx(name, r, idx[1], tuple(l) + tuple(lanes))
+        return
     for t, i in ((l, idx[0]), (r, idx[1])):
         _check_idx(name, t, i, lanes)
     if idx[0].shape != idx[1].shape:
         raise ValueError(f"{name}: idx_l and idx_r must be of one length")
+
+
+def _gather_pair(l, r, idx):
+    """l and r with their tables' rows gathered: l per-lane where idx_l
+    is None."""
+    return (l if idx[0] is None else _gather(l, idx[0])), _gather(r, idx[1])
 
 
 # -- plain versions ------------------------------------------------------------------
@@ -229,7 +258,7 @@ def affine_pair_prep_plain(curve: str, l, r, idx=None):
     nor a copy: their sum is infinity."""
     if idx is not None:
         _check_pair_idx(kernel_name("pair_prep", curve), l, r, idx)
-        l, r = _gather(l, idx[0]), _gather(r, idx[1])
+        l, r = _gather_pair(l, r, idx)
     F = get_curve_ops(curve, FK.PLAIN).F
     (x1, y1), (x2, y2) = l, r
     x1, y1, x2, y2 = torch.broadcast_tensors(x1, y1, x2, y2)
@@ -257,7 +286,7 @@ def affine_pair_finish_plain(curve: str, l, r, inv, flags, idx=None):
     then the selects in the TPU kernel's order: active -> USE_R -> USE_L."""
     if idx is not None:
         _check_pair_idx(kernel_name("pair_finish", curve), l, r, idx, (inv,))
-        l, r = _gather(l, idx[0]), _gather(r, idx[1])
+        l, r = _gather_pair(l, r, idx)
     cp = get_curve(curve)
     F = get_curve_ops(curve, FK.PLAIN).F
     (x1, y1), (x2, y2) = l, r
@@ -283,7 +312,7 @@ def xyzz_madd(curve: str, p, a, idx=None):
     `idx` (int32, one per lane), lane i adds row idx[i] of the point table
     a, two (W, rows) coordinates."""
     coords = tuple(p) + tuple(a)
-    if _on_cpu(coords):
+    if _plain(curve, coords):
         return xyzz_madd_plain(curve, p, a, idx)
     if idx is None:
         return _xyzz(_launch("xyzz_madd", curve, coords))
@@ -295,14 +324,14 @@ def xyzz_madd(curve: str, p, a, idx=None):
 def xyzz_add(curve: str, p, q):
     """p + q over xyzz points, lane by lane."""
     coords = tuple(p) + tuple(q)
-    if _on_cpu(coords):
+    if _plain(curve, coords):
         return xyzz_add_plain(curve, p, q)
     return _xyzz(_launch("xyzz_add", curve, coords))
 
 
 def xyzz_dbl(curve: str, p):
     """2 p over xyzz points, lane by lane."""
-    if _on_cpu(p):
+    if _plain(curve, p):
         return xyzz_dbl_plain(curve, p)
     return _xyzz(_launch("xyzz_dbl", curve, tuple(p)))
 
@@ -311,9 +340,9 @@ def affine_pair_prep(curve: str, l, r, idx=None):
     """(den, flags) of the batch-affine pair add l + r, lane by lane; with
     idx = (idx_l, idx_r) (int32, one per lane), lane i's l and r are row
     idx_l[i] of the table l and row idx_r[i] of the table r, each two
-    (W, rows) coordinates."""
+    (W, rows) coordinates; with idx_l None, l is per-lane."""
     coords = tuple(l) + tuple(r)
-    if _on_cpu(coords):
+    if _plain(curve, coords):
         return affine_pair_prep_plain(curve, l, r, idx)
     out = _launch("pair_prep", curve, coords,
                   idx=_pair_views(curve, "pair_prep", l, r, idx))
@@ -324,7 +353,7 @@ def affine_pair_finish(curve: str, l, r, inv, flags, idx=None):
     """l + r from inv = 1 / den and the flags of affine_pair_prep; idx as
     there."""
     coords = tuple(l) + tuple(r) + (inv,)
-    if _on_cpu(coords + (flags,)):
+    if _plain(curve, coords + (flags,)):
         return affine_pair_finish_plain(curve, l, r, inv, flags, idx)
     views = _pair_views(curve, "pair_finish", l, r, idx, (inv,))
     return tuple(_launch("pair_finish", curve, coords, flags,
@@ -333,7 +362,7 @@ def affine_pair_finish(curve: str, l, r, inv, flags, idx=None):
 
 def _pair_views(curve, op, l, r, idx, lanes=()):
     """The per-coordinate indices of an indexed pair kernel: idx_l for
-    l's x and y, idx_r for r's; None without idx."""
+    l's x and y (None: per-lane), idx_r for r's; None without idx."""
     if idx is None:
         return None
     _check_pair_idx(kernel_name(op, curve), l, r, idx, lanes)

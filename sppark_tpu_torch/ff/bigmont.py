@@ -73,12 +73,14 @@ def words_to_wire(t: torch.Tensor) -> np.ndarray:
 class BigMontField:
     """Field ops over (n32, *batch) int32 words, Montgomery form."""
 
+    dtype = torch.int32
+
     def __init__(self, params: FieldParams, kern: FieldKernels = KERNELS):
         self.params = params
         self.p = params.modulus
         self.n32 = params.n_ref_limbs
-        #: int32 words per element
-        self.words = self.n32
+        #: int32 words per element, and its tensor rows
+        self.words = self.rows = self.n32
         self.kern = kern
         self._p_words = int_words(self.p, self.n32)
 

@@ -4,7 +4,9 @@ sppark_tpu/ff/ext.py:Fp2Field and the coordinate field of the G2 curves;
 and BabyBear4Field, the quartic extension of BabyBear (below).
 
 An element is ONE tensor of `(2 n32, *batch)` int32 words: c0's n32
-Montgomery words, then c1's.  That is the TPU kernels' stacked-plane order
+Montgomery words, then c1's.  Over a one-word field (ff/lane.py: the
+Goldilocks words of test_gl64_g2) it is `(2, *batch)`, c0's word then
+c1's, with no kernel on any device, as the JAX package runs that tower.  That is the TPU kernels' stacked-plane order
 (sppark_tpu/ec/pallas_ops.py:_KCtx, c0 || c1) and the wire order c0 || c1
 of a G2 coordinate, so the point kernels' strided views, the MSM slab's
 point-major rows (x0 || x1 || y0 || y1) and the wire converters carry over
@@ -24,12 +26,14 @@ from __future__ import annotations
 import functools
 from typing import Iterable, List
 
+import numpy as np
 import torch
 
 from ..params import Fp2Params
 from . import inversion
-from .bigmont import get_field_ops, wire_to_words, words_to_wire
+from .bigmont import BigMontField, wire_to_words, words_to_wire
 from .kernels import KERNELS, FieldKernels, add_small_multiple
+from .lane import get_base_ops
 from .mont32 import Mont32Field, get_mont32_ops
 
 
@@ -38,11 +42,16 @@ class Fp2Field:
 
     def __init__(self, params: Fp2Params, kern: FieldKernels = KERNELS):
         self.params = params
-        self.base = get_field_ops(params.base, kern)
+        self.base = get_base_ops(params.base, kern)
         self.p = self.base.p
-        self.n32 = self.base.n32
-        #: int32 words per element
-        self.words = 2 * self.n32
+        #: tensor rows per coefficient (n32 over a multi-limb field)
+        self.n32 = self.base.rows
+        #: 32-bit words per element, and its tensor rows
+        self.words = 2 * self.base.words
+        self.rows = 2 * self.n32
+        self.dtype = self.base.dtype
+        #: the base field's kernels serve the card's batch inversion
+        self._kernels = isinstance(self.base, BigMontField)
         #: u^2, a small signed integer
         self.nr = params.nr_small
 
@@ -71,7 +80,15 @@ class Fp2Field:
 
     def _plus_nr(self, t0, t1, sign: int = 1):
         """t0 + sign * nr * t1 over base-field words, by additions."""
-        return add_small_multiple(t0, t1, sign * self.nr, self.base.params)
+        k = sign * self.nr
+        if self._kernels:
+            return add_small_multiple(t0, t1, k, self.base.params)
+        B, m, run = self.base, None, t1
+        for bit in bin(abs(k))[:1:-1]:          # double and add, LSB first
+            if bit == "1":
+                m = run if m is None else B.add(m, run)
+            run = B.add(run, run)
+        return B.sub(t0, m) if k < 0 else B.add(t0, m)
 
     def mul(self, x, y):
         """Karatsuba: c0 = a0 b0 + nr a1 b1, c1 = (a0 + a1)(b0 + b1) - a0 b0
@@ -107,8 +124,8 @@ class Fp2Field:
 
     # -- constants ---------------------------------------------------------------
     def zeros(self, batch_shape, device=None):
-        return torch.zeros((self.words,) + tuple(batch_shape),
-                           dtype=torch.int32, device=device)
+        return torch.zeros((self.rows,) + tuple(batch_shape),
+                           dtype=self.dtype, device=device)
 
     def const(self, value: int, batch_shape=(), device=None):
         """A canonical base-field int embedded as (value, 0), broadcast in
@@ -141,7 +158,7 @@ class Fp2Field:
         """Inversion of every lane through the norm map, zero lanes giving
         zero: on the card `_batch_inv_dev`, on the CPU the base field's
         prefix/suffix batch inversion along the last axis."""
-        if x.device.type != "cpu":
+        if x.device.type != "cpu" and self._kernels:
             return self._batch_inv_dev(x)
         return self._inv_by_norm(x, self.base.batch_inv)
 
@@ -150,7 +167,7 @@ class Fp2Field:
         sppark_tpu/ff/ext.py:Fp2Field.batch_inv_tree (a power-of-two axis,
         non-zero inputs): on the card `_batch_inv_dev`, on the CPU through
         the norm map and the base field's product tree."""
-        if x.device.type != "cpu":
+        if x.device.type != "cpu" and self._kernels:
             inversion.check_pow2(x.shape[-1])
             return self._batch_inv_dev(x)
         return self._inv_by_norm(x, self.base.batch_inv_tree)
@@ -172,12 +189,19 @@ class Fp2Field:
         return list(zip(self.base.to_int_list(c0), self.base.to_int_list(c1)))
 
     def from_wire_np(self, arr, device=None) -> torch.Tensor:
-        """Wire (*shape, 2 n32) u32 words, c0 || c1 -> (2 n32, *shape)."""
-        return wire_to_words(arr, self.words, device)
+        """Wire (*shape, 2 n32) u32 words, c0 || c1 -> (2 n32, *shape);
+        over a one-word field (*shape, 2) words, c0 || c1."""
+        if self._kernels:
+            return wire_to_words(arr, self.words, device)
+        a = np.asarray(arr)
+        return torch.cat([self.base.from_wire_np(
+            np.ascontiguousarray(a[..., k]), device) for k in (0, 1)])
 
     def to_wire_np(self, t: torch.Tensor):
         """(2 n32, *shape) words -> (*shape, 2 n32) wire words."""
-        return words_to_wire(t)
+        if self._kernels:
+            return words_to_wire(t)
+        return np.stack([self.base.to_wire_np(c) for c in t.chunk(2)], -1)
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,9 +7,14 @@ coordinates (ff/ext.py), its point ops on the fp2 kernels.
     (pippenger.cuh:72-121), with the scalar fold (s > r/2 -> r - s, signs
     flipped) as a word-wise compare and borrow chain;
   * schedule and accumulate: the slab (msm/slab.py, mode "auto" or
-    "slab") or the segmented tree (msm/tree.py, mode "tree");
+    "slab"), the segmented tree (msm/tree.py, mode "tree"), or the
+    histogram rounds of modes "xyzz" and "affine" (MSMRoundStages: in
+    round r every bucket takes its r-th point, by one xyzz madd, or by
+    one batch-affine pair add with the buckets kept affine); the round
+    modes spread the top window's digits over replica buckets;
   * integrate: per-window sum_b b * bucket[b] as grouped strip reductions
-    plus lg(C) doublings (pippenger.cuh:225-296, 627-665), shared by both;
+    plus lg(C) doublings (pippenger.cuh:225-296, 627-665), shared by all,
+    after the round modes' replica fold;
   * to_affine: one batch inversion over the (nwins,) window sums;
   * collect: the doubling merge of the window sums on the host over exact
     ints (pippenger.cuh:667-727).
@@ -21,9 +26,10 @@ kern=ec.kernels.PLAIN)` (or MSMTreeStages) runs the same pipeline on the
 plain versions.
 
 Each phase runs in a `torch.profiler.record_function` range: msm.schedule,
-msm.gather, then msm.madd_rounds and msm.fold (slab) or msm.tree_levels
-and msm.extract (tree), msm.integrate, msm.to_affine; so a profile of a
-real invoke splits its time by phase.
+msm.gather, then msm.madd_rounds and msm.fold (slab), msm.tree_levels
+and msm.extract (tree), msm.madd_rounds (xyzz) or msm.affine_rounds
+(affine), msm.integrate, msm.to_affine; so a profile of a real invoke
+splits its time by phase.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..params import get_curve
 from ..runtime.dev_ptr import DevPtr
 from ..runtime.devices import resolve
 from . import slab, tree
+from .slab import IDX_MASK
 
 
 # -- scalar ingestion ----------------------------------------------------------------
@@ -71,12 +78,31 @@ def demont_scalar_words(F: BigMontField, words: torch.Tensor) -> torch.Tensor:
 
 # -- breakdown ---------------------------------------------------------------------
 
+def spread_policy(order: int, wbits: int, nwins: int, nbuckets: int):
+    """(top_span, k): the top window's digits are at most top_max =
+    (order / 2 >> (nwins - 1) wbits) + 1, top_span the power of two that
+    covers them, and the round modes spread them over k = nbuckets /
+    top_span replica slots (sppark_tpu/msm/pippenger.py:_spread_policy)."""
+    top_max = (order // 2 >> ((nwins - 1) * wbits)) + 1
+    top_span = 1 << (top_max - 1).bit_length() if top_max > 1 else 1
+    k_spread = nbuckets // top_span if top_span < nbuckets else 1
+    return top_span, k_spread
+
+
 @functools.lru_cache(maxsize=None)
-def make_breakdown(curve_name: str, wbits: int, nwins: int, n_words: int):
+def make_breakdown(curve_name: str, wbits: int, nwins: int, n_words: int,
+                   spread: bool = False):
     """Signed-digit breakdown: (n_words, n) canonical int32 words ->
     (ids (nwins, n) int64, signs (nwins, n) bool) (pippenger.cuh:72-121).
-    The slab pipeline takes no top-window spreading."""
+    With `spread` (the round modes; the slab and the tree take none) the
+    top window's digit d of scalar i becomes d + (i mod k) top_span, its
+    replica slot (spread_policy); digit 0 stays 0, no bucket.  The round
+    modes' cost is linear in the largest bucket, and the top window's few
+    digits concentrate its points."""
     order = get_curve(curve_name).scalar.modulus
+    top_span, k_spread = spread_policy(order, wbits, nwins, 1 << (wbits - 1))
+    if not spread:
+        k_spread = 1
     half, full = 1 << (wbits - 1), 1 << wbits
     half_order_words = [(order // 2 >> (32 * i)) & M32
                         for i in range(n_words)]
@@ -114,6 +140,10 @@ def make_breakdown(curve_name: str, wbits: int, nwins: int, n_words: int):
             ids.append(torch.where(d_neg, full - t, t))
             carry = d_neg.to(torch.int64)
             signs.append(d_neg ^ neg)
+        if k_spread > 1:
+            rep = torch.arange(n, dtype=torch.int64,
+                               device=w.device) % k_spread * top_span
+            ids[-1] = torch.where(ids[-1] == 0, ids[-1], ids[-1] + rep)
         return torch.stack(ids), torch.stack(signs)
 
     return breakdown
@@ -129,6 +159,8 @@ class _Stages:
 
     #: live slot bytes per accumulate call (bounds the window grouping)
     BUDGET = 3 << 30
+    #: whether the breakdown spreads the top window over replica buckets
+    SPREAD = False
 
     def __init__(self, curve_name: str, wbits: int, nwins: int,
                  n_words: int, kern: Kernels = KERNELS):
@@ -138,7 +170,11 @@ class _Stages:
         self.nbuckets = 1 << (wbits - 1)
         self.kern = kern
         self.ops = get_curve_ops(curve_name, kern.field)
-        self.breakdown = make_breakdown(curve_name, wbits, nwins, n_words)
+        self.top_span, self.k_spread = spread_policy(
+            get_curve(curve_name).scalar.modulus, wbits, nwins,
+            self.nbuckets) if self.SPREAD else (0, 1)
+        self.breakdown = make_breakdown(curve_name, wbits, nwins, n_words,
+                                        self.SPREAD)
 
     def _slot_bytes(self) -> int:
         """One point-major slot: two coordinates of W 32-bit words (W =
@@ -151,13 +187,30 @@ class _Stages:
         with record_function("msm.integrate"):
             return self._integrate(bucket)
 
+    def fold_top(self, bucket):
+        """The top window's replica buckets folded into its first
+        top_span: slot (r, m) holds digit m + 1's r-th replica, and lg k
+        pairwise adds sum the replicas; the other slots become infinity."""
+        curve, k, span = self.curve_name, self.k_spread, self.top_span
+        tops = tuple(c[:, -1].reshape(c.shape[0], k, span) for c in bucket)
+        while tops[0].shape[1] > 1:
+            tops = self.kern.add(curve, tuple(c[:, 0::2] for c in tops),
+                                 tuple(c[:, 1::2] for c in tops))
+        return tuple(torch.cat([b[:, :-1], torch.cat(
+            [t[:, 0], torch.zeros_like(b[:, -1, span:])], dim=-1)[:, None]],
+            dim=1) for b, t in zip(bucket, tops))
+
     def _integrate(self, bucket):
-        """W_w = sum_b b * bucket[w, b] for every window: (W, nwins) x 4.
-        Buckets split into G groups of C; strip sums T[g] = sum_c
-        bucket[g, c] and R[g] = sum_c (c+1) bucket[g, c] run C serial adds
-        over (nwins, G) lanes; then W = sum_g R[g] + C sum_{k>=1} SufT[k]
-        with SufT the suffix sums of T, and C * (.) by lg(C) doublings."""
+        """W_w = sum_b b * bucket[w, b] for every window: (W, nwins) x 4,
+        after the top window's replica fold (fold_top) where the breakdown
+        spread it.  Buckets split into G groups of C; strip sums T[g] =
+        sum_c bucket[g, c] and R[g] = sum_c (c+1) bucket[g, c] run C
+        serial adds over (nwins, G) lanes; then W = sum_g R[g] + C
+        sum_{k>=1} SufT[k] with SufT the suffix sums of T, and C * (.) by
+        lg(C) doublings."""
         curve, kern = self.curve_name, self.kern
+        if self.k_spread > 1:
+            bucket = self.fold_top(bucket)
         nwins, G = self.nwins, min(64, self.nbuckets)
         C = self.nbuckets // G
         words = bucket[0].shape[0]
@@ -265,8 +318,98 @@ class MSMTreeStages(_Stages):
         return self.ops.affine_to_xyzz(aff)
 
 
+class MSMRoundStages(_Stages):
+    """The histogram rounds of the JAX package's modes "xyzz" and
+    "affine" (sppark_tpu/msm/pippenger.py:_stage_bodies): a sort of each
+    window's (sign, index) by bucket id gives bucket b its run [base[b],
+    base[b] + occ[b]); in round r every bucket takes its run's r-th point,
+    so rounds = the largest occupancy, read once on the host.  The top
+    window is spread over replica buckets (make_breakdown), folded before
+    the strip sums.  Mode "xyzz" adds a round's points to xyzz buckets by
+    one madd launch that reads each point from the gather table
+    (slab.point_rows) through the round's int32 index; mode "affine" keeps
+    the buckets affine and adds a round's points by one batch-affine pair
+    add (tree.affine_pair_add: prep, the batch inversion, finish), the
+    finish and prep reading the point through the same index."""
+
+    SPREAD = True
+
+    def __init__(self, curve_name: str, wbits: int, nwins: int,
+                 n_words: int, kern: Kernels = KERNELS,
+                 mode: str = "xyzz"):
+        super().__init__(curve_name, wbits, nwins, n_words, kern)
+        self.mode = mode
+
+    def schedule(self, words):
+        """(sorted_val (nwins, n) int64: sign << 31 | index in bucket
+        order; base, occ (nwins, nbuckets); rounds, an int)."""
+        with record_function("msm.schedule"):
+            ids, signs = self.breakdown(words)
+            W, n = ids.shape
+            dev = ids.device
+            payload = (torch.arange(n, dtype=torch.int64, device=dev)[None]
+                       | (signs.to(torch.int64) << 31))
+            sorted_ids, perm = torch.sort(ids, dim=-1, stable=True)
+            sorted_val = torch.gather(payload, 1, perm)
+            del payload, perm
+            nb = self.nbuckets
+            off = torch.arange(W, dtype=torch.int64, device=dev)[:, None]
+            counts = torch.bincount(
+                (sorted_ids + off * (nb + 1)).reshape(-1),
+                minlength=W * (nb + 1)).reshape(W, nb + 1)
+            starts = torch.cumsum(counts, dim=1) - counts
+            occ, base = counts[:, 1:], starts[:, 1:]
+            return sorted_val, base, occ, int(occ.max())
+
+    def round_index(self, sorted_val, base, occ, r0: int, r1: int):
+        """Rounds r0..r1-1's gather-table rows, (r1 - r0, nwins *
+        nbuckets) int32: bucket b's r-th point i, n + i where its digit
+        is negative, 2n (the zero row) past its run's end."""
+        W, n = sorted_val.shape
+        r = torch.arange(r0, r1, dtype=torch.int64,
+                         device=base.device)[None, :, None]
+        pos = torch.clamp(base[:, None] + r, max=n - 1)
+        val = torch.gather(sorted_val, 1, pos.reshape(W, -1)).reshape(
+            pos.shape)
+        gidx = torch.where(r < occ[:, None], (val & IDX_MASK)
+                           + n * (val >> 31), 2 * n)
+        return gidx.transpose(0, 1).reshape(r1 - r0, -1).to(torch.int32)
+
+    def accumulate(self, sched, rows):
+        """Bucket sums (W, nwins, nbuckets) x 4 (xyzz) from the schedule
+        and the gather table: the rounds' index built a block of rounds at
+        a time within BUDGET, then one madd (xyzz) or one pair add
+        (affine) a round."""
+        sorted_val, base, occ, rounds = sched
+        curve, kern = self.curve_name, self.kern
+        w = rows.shape[1] // 2
+        table = (rows[:, :w].T, rows[:, w:].T)      # (W, 2n + 1) views
+        lanes = self.nwins * self.nbuckets
+        block = max(1, self.BUDGET // (32 * lanes))
+        affine = self.mode == "affine"
+        acc = tuple(torch.zeros((w, lanes), dtype=rows.dtype,
+                                device=rows.device)
+                    for _ in range(2 if affine else 4))
+        for r0 in range(0, rounds, block):
+            r1 = min(rounds, r0 + block)
+            with record_function("msm.gather"):
+                idx = self.round_index(sorted_val, base, occ, r0, r1)
+            with record_function("msm.affine_rounds" if affine
+                                 else "msm.madd_rounds"):
+                for k in range(r1 - r0):
+                    acc = (tree.affine_pair_add(curve, acc, table, kern,
+                                                (None, idx[k])) if affine
+                           else kern.madd(curve, acc, table, idx[k]))
+            del idx
+        if affine:
+            acc = self.ops.affine_to_xyzz(acc)
+        return tuple(c.reshape(w, self.nwins, self.nbuckets) for c in acc)
+
+
 _STAGES = {"auto": MSMSlabStages, "slab": MSMSlabStages,
-           "tree": MSMTreeStages}
+           "tree": MSMTreeStages,
+           **{m: functools.partial(MSMRoundStages, mode=m)
+              for m in ("xyzz", "affine")}}
 
 
 def collect(curve, wbits: int, nwins: int, wx, wy) -> AffinePoint:
@@ -307,8 +450,9 @@ class MSMContext:
     window policy and the stages, and optionally a device-resident point
     set reused across invocations (pippenger.cuh:377-383, 582-601).
 
-    `mode` picks the accumulator: "auto" or "slab" (msm/slab.py) or
-    "tree" (msm/tree.py); both give the same point.
+    `mode` picks the accumulator: "auto" or "slab" (msm/slab.py), "tree"
+    (msm/tree.py), or the rounds of "xyzz" and "affine"
+    (MSMRoundStages); all give the same point.
     `chunk` sizes the window policy and the stages to a chunk of points;
     longer inputs run chunk by chunk, and the chunks' window sums combine
     with one xyzz add each (pippenger.cuh:454-459, 496-556).  Points given
@@ -318,9 +462,8 @@ class MSMContext:
                  mode: str = "auto", chunk: int = 0, device=None):
         if mode not in _STAGES:
             raise NotImplementedError(
-                f"MSM mode {mode!r} is not ported: only the slab and tree "
-                f"accumulators are (ROADMAP.md, Queue 1: "
-                f"msm/batch_addition.py)")
+                f"MSM mode {mode!r} is unknown: the modes are "
+                f"{sorted(_STAGES)}")
         self.curve = get_curve(curve) if isinstance(curve, str) else curve
         self.device = resolve(device)
         self.ops = get_curve_ops(self.curve.name)

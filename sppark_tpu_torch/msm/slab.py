@@ -132,7 +132,7 @@ def madd_rounds(curve: str, rows, idx, rounds: int,
     accumulators, four (W, wg * S) coordinates of W words each."""
     w = rows.shape[1] // 2
     table = (rows[:, :w].T, rows[:, w:].T)
-    acc = (torch.zeros((w, idx.shape[1]), dtype=torch.int32,
+    acc = (torch.zeros((w, idx.shape[1]), dtype=rows.dtype,
                        device=rows.device),) * 4
     for r in range(rounds):
         acc = kern.madd(curve, acc, table, idx[r])

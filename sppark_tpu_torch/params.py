@@ -34,6 +34,12 @@ curve (modulus, multiplicative generator, curve coefficient, cofactor).
     L^2 + 27 M^2, L = 2^32 + 1, Deuring), so #E(F_p^2) = (p + 1 - t)(p + 1 +
     t) with p + 1 + t = 467443687 * 39463029637; the 36-bit prime is its
     scalar group, and its coordinates are genuinely quadratic.
+  * The test curves over the narrow fields' one-word elements: test_gl64
+    (y^2 = x^3 + 10 x + 2 over Goldilocks, a 60-bit prime subgroup),
+    test_gl64_g2 (test_bm64_g2's curve on canonical Goldilocks words) and
+    toy_bb31 (over BabyBear; its group order is not validated, so no MSM
+    result on it is checked).  Their points run the plain point ops on
+    every device, as the JAX package sends them through no kernel.
 """
 
 from __future__ import annotations
@@ -294,6 +300,33 @@ TEST_BM64_FP2 = Fp2Params("test_bm64_fp2", GOLDILOCKS_BM, 7)
 TEST_BM64_G2 = CurveParams(
     "test_bm64_g2", GOLDILOCKS_BM, TEST_GL64_G2_FR, b=2, fp2=TEST_BM64_FP2,
     cofactor=18446744065119617025 * 467443687)
+# Toy curve over the BabyBear field: NOT a cryptographic group (its order is
+# not validated): it exists so that dry runs can drive the whole MSM
+# pipeline on one-word field ops.  Never use it for correctness tests of
+# group arithmetic; no MSM result on it is checked.
+TOY_BB31_G1 = CurveParams("toy_bb31", BABY_BEAR, BABY_BEAR, b=1)
+
+# A small test curve y^2 = x^3 + 10 x + 2 over the Goldilocks field (its
+# canonical u64 words, not the Montgomery words of goldilocks_bm): #E =
+# 18446744061260817534 = 2 * 3^2 * r with the 60-bit prime r =
+# 1024819114514489863, so the subgroup of order r (cofactor 18) is a real
+# prime-order group with two-word scalars, and a4 != 0.
+TEST_GL64_FR = FieldParams(
+    name="test_gl64_fr",
+    modulus=1024819114514489863,
+    generator=3,
+    montgomery_wire=False,
+)
+TEST_GL64_G1 = CurveParams("test_gl64", GOLDILOCKS, TEST_GL64_FR, b=2,
+                           a4=10, cofactor=18)
+
+# test_bm64_g2's curve, y^2 = x^3 + 2 over F_p^2 = F_p[u]/(u^2 - 7) for
+# the Goldilocks p, with the coordinates on the canonical Goldilocks words.
+GOLDILOCKS_FP2 = Fp2Params("goldilocks_fp2", GOLDILOCKS, 7)
+TEST_GL64_G2 = CurveParams(
+    "test_gl64_g2", GOLDILOCKS, TEST_GL64_G2_FR, b=2, fp2=GOLDILOCKS_FP2,
+    cofactor=18446744065119617025 * 467443687)
+
 BLS12_381_G2 = CurveParams(
     "bls12_381_g2", BLS12_381_FP, BLS12_381_FR, b=4, b_c1=4,
     fp2=BLS12_381_FP2,
@@ -315,11 +348,13 @@ BLS12_377_G2 = CurveParams(
 FIELDS = {f.name: f for f in (
     BABY_BEAR, BABY_BEAR_RISC0, MERSENNE31, GOLDILOCKS, GOLDILOCKS_PLONKY2,
     BN254_FR, BN254_FP, BLS12_381_FR, BLS12_381_FP, BLS12_377_FR, BLS12_377_FP, PALLAS_P, VESTA_Q,
-    TEST_BM64_FP, TEST_BM64_FR, TEST_BM64_FR_SCALAR, GOLDILOCKS_BM)}
+    TEST_BM64_FP, TEST_BM64_FR, TEST_BM64_FR_SCALAR, GOLDILOCKS_BM,
+    TEST_GL64_FR, TEST_GL64_G2_FR)}
 
 CURVES = {c.name: c for c in (
     BN254_G1, BLS12_381_G1, BLS12_377_G1, PALLAS_G1, VESTA_G1,
-    TEST_BM64_G1, BLS12_381_G2, BN254_G2, BLS12_377_G2, TEST_BM64_G2)}
+    TEST_BM64_G1, BLS12_381_G2, BN254_G2, BLS12_377_G2, TEST_BM64_G2,
+    TOY_BB31_G1, TEST_GL64_G1, TEST_GL64_G2)}
 
 
 def get_field(name: str) -> FieldParams:

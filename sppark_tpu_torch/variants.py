@@ -4,6 +4,7 @@ the committed ones on one card and on the same data:
 
     python3 -m sppark_tpu_torch.variants [--parent DIR] [part of a name ...]
     python3 -m sppark_tpu_torch.variants --sass [source ...]
+    python3 -m sppark_tpu_torch.variants --sass --parent DIR [source ...]
 
 (with arguments, only the variants whose name holds one of them, and the
 committed kernels they replace; with --parent, one more variant of each
@@ -102,7 +103,17 @@ around it) and one Goldilocks op (mul, add, sub, canon, and a copy) in a
 kernel of its own, whose SASS counts give the instructions of one op.
 The committed kernels' own registers are printed by chip_smoke.py.
 --sass also prints, for each point kernel, the memory instructions
-before its first IMAD.WIDE (the order of its loads).
+before its first IMAD.WIDE (the order of its loads); --sass --parent DIR
+builds the named point sources (default all) from the parent's text too
+and says, for each N = 12 point kernel, whether the two builds give the
+same instructions.  For the fp2 dbl (csrc/ec_fp2_dbl.cu; committed: the
+lane pair on the carry-chain element, mont::Fp2PairCC): the lane pair on
+mont::Fp2Pair (the fp2 add's element) and one thread a lane on
+mont::Fp2CC, timed at the G2 integrate's 17 lanes by its C entry point
+and at 2^18 lanes, and with any of them built, each one's device
+microseconds a launch in one profiled G2 slab 2^23 and one G2 tree 2^23
+invoke (g2_dbl_times; with --parent, the parent's one thread a lane on
+mont::Fp2 too).
 Nothing of the port calls this module.
 """
 
@@ -131,8 +142,14 @@ ADD_LANES, FINISH_LANES, MADD_LANES = 147_456, 6_459_904, 294_912
 #: the G1 tree 2^24's level 1 (INV_LANES) and its point table; level 2
 G1_TABLE_ROWS = (2 << 24) + 1
 G1_L2_LANES = 6_482_432
-#: the G1 dbl: the integrate's lanes, and a wide shape
+#: the G1 dbl: the integrate's lanes, and a wide shape; the G2 dbl's
+#: integrate runs on 17 lanes
 DBL_LANES, DBL_WIDE_LANES = 16, 1 << 18
+FP2_DBL_LANES = 17
+#: the fp2 dbl's dispatch (csrc/ec_fp2_dbl.cu)
+FP2_DBL = "ec::dispatch<mont::Fp2PairCC, ec::DBL>"
+#: the G2 MSMs the fp2 dbl's variants run in: the slab and the tree 2^23
+G2_LG = 23
 #: the G1 tree MSM the --parent run times end to end
 TREE_LG = 24
 #: the G2 tree 2^23's point table: 2 n + 1 rows, the last the zero row
@@ -271,6 +288,13 @@ def variants():
         out[f"{source}{what} one thread a lane"] = (source, [
             (f"ec::dispatch<mont::Fp2Pair, ec::{op}",
              f"ec::dispatch<mont::Fp2, ec::{op}")])
+    # the fp2 dbl's elements: the lane pair on mont::Fp (the fp2 add's),
+    # and one thread a lane on mont::Fp2CC (the committed element's
+    # coefficients without the lane pair)
+    for what, elem in (("lane pair on mont::Fp2Pair", "Fp2Pair"),
+                       ("one thread on mont::Fp2CC", "Fp2CC")):
+        out[f"ec_fp2_dbl {what}"] = ("ec_fp2_dbl", [
+            (FP2_DBL, FP2_DBL.replace("Fp2PairCC", elem))])
     for source in ("ec_fp2_add", "ec_fp2_pair"):
         for k in (1, 2, 3, 4):
             out[f"{source}, {k} block{'s' * (k > 1)}"] = (source,
@@ -375,7 +399,8 @@ def _registers(log):
     wide NTT kernels and the mont32 NTT kernels of a build log."""
     out, entry = [], None
     for line in log.splitlines():
-        m = re.search(r"ec_kernelIN4mont\d+(FpCC|Fp2Pair|Fp2|Fp)ILi12EEELi"
+        m = re.search(r"ec_kernelIN4mont\d+(Fp2PairCC|Fp2Pair|Fp2CC|FpCC|"
+                      r"Fp2|Fp)ILi12EEELi"
                       r"(\d)ELb([01])E", line)
         k = re.search(r"(inv_up|inv_down)ILi12ELi(\d)E", line)
         w = re.search(r"(rows|cols|mid)_kernelI(Li8E|\w*?(?:Mont32|Gl64))",
@@ -607,24 +632,26 @@ def _fp2(p, n32, shape, rng, dev):
 
 
 def _bare_dbl(curve, p):
-    """ec_xyzz_dbl on the G1 point p by its C entry point, on views and an
-    output made once, so that back-to-back calls time the device where the
-    wrapper's host time (~0.04 ms a call) would hide it at a few lanes;
-    the library is looked up at each call, so a variant's takes its
-    place.  Returns the call, which returns [output]."""
-    n32, n = p[0].shape
-    out = torch.empty((4 * n32, n), dtype=torch.int32, device=p[0].device)
+    """The dbl of `curve`'s degree (ec_xyzz_dbl or ec_fp2_xyzz_dbl) on the
+    point p by its C entry point, on views and an output made once, so
+    that back-to-back calls time the device where the wrapper's host time
+    (~0.04 ms a call) would hide it at a few lanes; the library is looked
+    up at each call, so a variant's takes its place.  Returns the call,
+    which returns [output]."""
+    words, n = p[0].shape
+    out = torch.empty((4 * words, n), dtype=torch.int32, device=p[0].device)
     views = np.zeros(5 * len(p), dtype=np.int64)
     for k, c in enumerate(p):
         views[5 * k:5 * k + 3] = (c.data_ptr(), c.stride(0), c.stride(1))
-    args = (n32, views.ctypes.data, out.data_ptr(), n,
-            EK._consts(curve).ctypes.data,
+    args = (get_curve(curve).field.n_ref_limbs, views.ctypes.data,
+            out.data_ptr(), n, EK._consts(curve).ctypes.data,
             torch.cuda.current_stream().cuda_stream)
-    EK._lib("ec_xyzz_dbl")
+    name = EK.kernel_name("xyzz_dbl", curve)
+    EK._lib(name)
 
     def call(_keep=(p, views)):     # what args points to lives with call
-        if _build._libs["ec_xyzz"].ec_xyzz_dbl(*args):
-            raise RuntimeError("ec_xyzz_dbl: launch failed")
+        if getattr(_build._libs[EK.SOURCES[name]], name)(*args):
+            raise RuntimeError(f"{name}: launch failed")
         return [out]
     return call
 
@@ -687,6 +714,108 @@ def tree_times(dev, card, parent):
     torch.cuda.empty_cache()
 
 
+def g2_dbl_times(dev, card, libs):
+    """The fp2 dbl's device microseconds a launch in one profiled G2 slab
+    2^G2_LG invoke and one G2 tree invoke (BLS12-381; chip_smoke.py's
+    base points r_j G, msm_input's tiling and scalars) on each library of
+    `libs` ({name: library of ec_fp2_dbl}), in the order given and back;
+    each invoke's result equals the first."""
+    import chip_smoke as CS
+    from torch.profiler import ProfilerActivity, profile
+    from .msm import MSMContext
+
+    curve = "bls12_381_g2"
+    t0 = time.perf_counter()
+    _, _, base = CS.g2_base(curve, 1 << CS.LG_BASE, seed=42)
+    _, pts, _, wd = CS.msm_input(curve, G2_LG, dev, base)
+    ctxs = {}
+    for mode in ("slab", "tree"):
+        ctxs[mode] = MSMContext(curve, 1 << G2_LG, mode=mode)
+        ctxs[mode].set_points(pts)
+    del pts
+    EK._lib("ec_fp2_xyzz_dbl")
+    committed = _build._libs["ec_fp2_dbl"]
+    print(f"G2 2^{G2_LG}: input and points set in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    first = {}
+    order = list(libs)
+    try:
+        for name in order + order[::-1]:
+            _build._libs["ec_fp2_dbl"] = libs[name]
+            for mode, ctx in ctxs.items():
+                got = ctx.invoke(wd)
+                first.setdefault(mode, got)
+                if got != first[mode]:
+                    raise RuntimeError(f"G2 {mode} 2^{G2_LG}: {name} gives "
+                                       f"another result")
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    ctx.invoke(wd)
+                    torch.cuda.synchronize()
+                _, _, by_kernel, _ = CS.profile_breakdown(prof)
+                ms, k = by_kernel.get("ec_fp2_xyzz_dbl", (0.0, 0))
+                print(f"G2 {mode} 2^{G2_LG} on {name}: ec_fp2_xyzz_dbl "
+                      f"{ms:.4f} device ms, {k} launches, "
+                      f"{ms / max(k, 1) * 1e3:.2f} us a launch  [{card}]",
+                      flush=True)
+    finally:
+        _build._libs["ec_fp2_dbl"] = committed
+    del ctxs, wd
+    torch.cuda.empty_cache()
+
+
+def sass_text(lib):
+    """{kernel: [instruction, ...]} of the N = 12 point kernels and probes
+    of a built library (`cuobjdump -sass`), addresses and encodings left
+    out: two builds compiled to the same code give equal lists."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).parent / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _sass_name(m.group(1))
+            if name:
+                out[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def compare_sass(sources, parent, card):
+    """Whether each N = 12 point kernel of `sources` compiles to the same
+    instructions from the parent's text (the directory `parent`) as from
+    the committed one."""
+    todo = {s: _make(f"{s} parent sass", s, [], parent) for s in sources}
+    procs = {s: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for s, (_, cmd) in todo.items()}
+    _build.build(list(sources))
+    for s, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {s} parent:\n{log}")
+        old = sass_text(todo[s][0])
+        new = sass_text(_build._target(s))
+        for k in sorted(set(old) | set(new)):
+            a, b = old.get(k), new.get(k)
+            if a is None or b is None:
+                what = "only in the " + ("committed" if a is None
+                                         else "parent") + " build"
+            elif a == b:
+                what = f"identical ({len(a)} instructions)"
+            else:
+                at = next((i for i, (x, y) in enumerate(zip(a, b))
+                           if x != y), min(len(a), len(b)))
+                what = (f"differs: {len(a)} / {len(b)} instructions, first "
+                        f"at {at}")
+            print(f"sass vs parent {s} {k}: {what}  [{card}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("variants: no CUDA device", file=sys.stderr)
@@ -698,6 +827,9 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     args = sys.argv[1:]
     if args[:1] == ["--sass"]:
+        if args[1:2] == ["--parent"]:
+            compare_sass(args[3:] or list(POINT_SOURCES), args[2], card)
+            return 0
         print_sass(args[1:] or list(SASS_SOURCES), card)
         return 0
     every = variants()
@@ -737,6 +869,12 @@ def main():
     if {"ec_pair parent", "ec_xyzz parent"} <= set(libs):
         tree_times(dev, card, {s: libs[f"{s} parent"]
                                for s in ("ec_pair", "ec_xyzz")})
+    dbl_libs = {n: lib for n, lib in libs.items()
+                if n.startswith("ec_fp2_dbl")}
+    if dbl_libs:
+        EK._lib("ec_fp2_xyzz_dbl")
+        g2_dbl_times(dev, card, {**dbl_libs, "ec_fp2_dbl committed":
+                                 _build._libs["ec_fp2_dbl"]})
 
     cp = get_curve("bls12_381_g2")
     p, n32 = cp.field.modulus, cp.field.n_ref_limbs
@@ -816,6 +954,11 @@ def main():
             _words(p, n32, (DBL_LANES,), g, dev) for _ in range(4)))
         dblw = tuple(_words(p, n32, (DBL_WIDE_LANES,), g, dev)
                      for _ in range(4))
+    if "ec_fp2_dbl" in sources:
+        dbl17 = _bare_dbl("bls12_381_g2", tuple(
+            _fp2(p, n32, (FP2_DBL_LANES,), g, dev) for _ in range(4)))
+        dblw2 = tuple(_fp2(p, n32, (DBL_WIDE_LANES,), g, dev)
+                      for _ in range(4))
     if "ntt_wide" in sources:
         pw = get_parameters(WIDE_FIELD, dev)
         fr = get_field(WIDE_FIELD)
@@ -855,6 +998,8 @@ def main():
                                                 g1[4:]),
              "ec_xyzz_dbl": lambda: dbl16(),
              "ec_xyzz_dbl_wide": lambda: EK.xyzz_dbl("bls12_381", dblw),
+             "ec_fp2_dbl": lambda: dbl17(),
+             "ec_fp2_dbl_wide": lambda: EK.xyzz_dbl("bls12_381_g2", dblw2),
              "ec_pair": lambda: EK.affine_pair_finish(
                  "bls12_381", table1, table1, inv1, flags1, ix1),
              "ec_pair_prep": lambda: EK.affine_pair_prep(
@@ -894,6 +1039,7 @@ def main():
     # 1 and 2 and its finish at level 2, ec_pair's prep at level 1 and its
     # finish at level 2
     twins = {"batch_inv_fp2": "batch_inv", "ec_xyzz_add": "ec_xyzz",
+             "ec_fp2_dbl_wide": "ec_fp2_dbl",
              "ec_xyzz_dbl": "ec_xyzz", "ec_xyzz_dbl_wide": "ec_xyzz",
              "ec_pair_prep": "ec_pair", "ec_pair_l2": "ec_pair",
              "ntt_wide_rows": "ntt_wide", "ntt_mont32_rows": "ntt_mont32",
@@ -949,6 +1095,8 @@ def main():
                 "ec_fp2_pair_l2": FINISH_LANES // 2,
                 "ec_xyzz": MADD_LANES, "ec_xyzz_add": MADD_LANES,
                 "ec_xyzz_dbl": DBL_LANES, "ec_xyzz_dbl_wide": DBL_WIDE_LANES,
+                "ec_fp2_dbl": FP2_DBL_LANES,
+                "ec_fp2_dbl_wide": DBL_WIDE_LANES,
                 "ec_pair": INV_LANES, "ec_pair_prep": INV_LANES,
                 "ec_pair_l2": G1_L2_LANES,
                 "batch_inv": INV_LANES,
@@ -957,7 +1105,8 @@ def main():
     for k, what in (("ec_pair", "level 1 through the index"),
                     ("ec_pair_prep", "level 1 through the index"),
                     ("ec_pair_l2", "level 2 in place"),
-                    ("ec_xyzz_dbl", "by its C entry point")):
+                    ("ec_xyzz_dbl", "by its C entry point"),
+                    ("ec_fp2_dbl", "by its C entry point")):
         shape_of[k] += f", {what}"
     shape_of["ntt_wide"] = f"{WIDE_COLS[0]}, lg {WIDE_COLS[1]}"
     shape_of["ntt_wide_rows"] = f"{WIDE_ROWS[0]}, lg {WIDE_ROWS[1]}, out_t"

@@ -1042,3 +1042,156 @@ def test_tree_msm_on_card(dev, curve, n):
     assert invs == (pows, pows)
     k = rng.randrange(r)
     assert tree.invoke([k] * n) == naive([k] * n)
+
+
+# -- the G2 doubling on the carry-chain lane pair; the round MSM modes -------
+
+def _fp2_words(curve, n, seed, dev):
+    """(2 n32, n) random canonical fp2 words, edge words in the first
+    lanes."""
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    F = get_field_ops(params.get_curve(curve).field)
+    return torch.cat([_canon_words(F, n, seed, dev),
+                      _canon_words(F, n, seed + 1, dev)])
+
+
+@pytest.mark.parametrize("curve", G2_CURVES)
+def test_fp2_dbl_lane_pair_vs_plain(dev, curve):
+    """ec_fp2_xyzz_dbl runs each lane on a lane pair of carry-chain
+    threads, 16 lanes a warp: warps with exactly one Y == 0 lane, one
+    ZZ == 0 lane, or none, then 1, 17, 65 and 2^18 lanes (random
+    coordinates with edge words), equal the plain version word for word;
+    one launch each."""
+    from sppark_tpu_torch.ec import kernels as EK
+
+    p, _, _ = _point_cases(curve, 96, dev)
+    cases = _lane_pair_warps((38, 36)) + [list(range(16))]
+    before = EK.fp2_launches["ec_fp2_xyzz_dbl"]
+    for lanes in cases:
+        pw = tuple(c[:, lanes] for c in p)
+        got = EK.xyzz_dbl(curve, pw)
+        torch.cuda.synchronize()
+        want = EK.xyzz_dbl_plain(curve, pw)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), lanes
+    wide = tuple(_fp2_words(curve, 1 << 18, 40 + k, dev) for k in range(4))
+    got = EK.xyzz_dbl(curve, wide)
+    torch.cuda.synchronize()
+    want = EK.xyzz_dbl_plain(curve, wide)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert EK.fp2_launches["ec_fp2_xyzz_dbl"] - before == len(cases) + 1
+
+
+def test_fp2_dbl_refuses_p_without_spare_bit(dev):
+    """The fp2 doubling on the carry-chain element needs p < 2^255 at
+    n32 = 8: constants of p = 2^256 - 189 (prime, top bit set; nr = -1)
+    are refused at its C entry point with cudaErrorInvalidValue; the
+    other fp2 kernels, on mont::Fp, take them."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.kernels import int_words
+
+    p = (1 << 256) - 189
+    bad = np.asarray(int_words(p, 8) + int_words((1 << 256) % p, 8)
+                     + [0] * 8 + [-pow(p, -1, 1 << 32) % (1 << 32),
+                                  (-1) & 0xFFFFFFFF], dtype=np.uint32)
+    good = FK.field_consts(params.get_field("bn254_fp"), 0, -1)
+    x = torch.zeros((16, 4), dtype=torch.int32, device=dev)
+    flags = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    out = torch.empty((64, 4), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, n_in, refused in (("ec_fp2_xyzz_dbl", 4, True),
+                                ("ec_fp2_xyzz_madd", 6, False),
+                                ("ec_fp2_xyzz_add", 8, False),
+                                ("ec_fp2_pair_prep", 4, False),
+                                ("ec_fp2_pair_finish", 6, False)):
+        views = np.zeros(5 * n_in, dtype=np.int64)
+        for k in range(n_in):
+            v = flags if name == "ec_fp2_pair_finish" and k == 5 else x
+            views[5 * k:5 * k + 3] = (v.data_ptr(), v.stride(0), 1)
+        fn = getattr(EK._lib(name), name)
+        for consts, rc in ((bad, int(refused)), (good, 0)):
+            assert fn(8, views.ctypes.data, out.data_ptr(), 4,
+                      consts.ctypes.data, stream) == rc, name
+    torch.cuda.synchronize()
+
+
+def _tiled_case(curve, n, seed):
+    """8 distinct points tiled to n, infinity at index 3, scalars with 0,
+    r - 1 and a doubling pair planted; naive(scalars) is msm_naive over
+    the 8 points with each one's scalars summed mod r."""
+    import random
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.oracle.msm import msm_naive
+
+    cp = params.get_curve(curve)
+    o = get_oracle(cp)
+    rng = random.Random(seed)
+    base = [o.random_point(rng) for _ in range(8)]
+    pts = [base[i % 8] for i in range(n)]
+    pts[3] = o.infinity_affine()
+    r = cp.scalar.modulus
+    sc = [rng.randrange(r) for _ in range(n)]
+    sc[0], sc[1], sc[4], sc[12] = 0, r - 1, 5, 5
+
+    def naive(coef):
+        """coef: a signed multiple of each point."""
+        sums = [sum(k for i, k in enumerate(coef) if i % 8 == j and i != 3)
+                % r for j in range(8)]
+        return msm_naive(cp, base, sums)
+    return pts, sc, naive, rng
+
+
+@pytest.mark.parametrize("mode", ["xyzz", "affine"])
+@pytest.mark.parametrize("curve", ["bls12_381", "bls12_381_g2"])
+def test_msm_modes_on_card(dev, curve, mode):
+    """MSMContext(mode="xyzz" / "affine") at 2^10 through the entry point
+    against msm_naive, with Montgomery-form scalars and all-equal scalars
+    (rounds = n); the mode's point kernels and the batch inversion
+    launched."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.msm import MSMContext
+
+    n = 1 << 10
+    pts, sc, naive, rng = _tiled_case(curve, n, 11)
+    cp = params.get_curve(curve)
+    ctx = MSMContext(curve, n, mode=mode)
+    ctx.set_points(pts)
+    EK.reset_launches()
+    FK.reset_launches()
+    assert ctx.invoke(sc) == naive(sc)
+    counts = {k: v for k, v in {**EK.launches, **EK.fp2_launches}.items()
+              if v}
+    ops = (("pair_prep", "pair_finish") if mode == "affine"
+           else ("xyzz_madd",)) + ("xyzz_add", "xyzz_dbl")
+    assert sorted(counts) == sorted(EK.kernel_name(op, curve) for op in ops)
+    assert all(FK.launches[k] > 0 for k in ("bigmont_ew", "bigmont_pow",
+                                              "bigmont_inv_up",
+                                              "bigmont_inv_down"))
+    mont = np.array([[(cp.scalar.to_mont(s) >> (32 * k)) & 0xFFFFFFFF
+                      for s in sc] for k in range(ctx.n_words)],
+                    dtype=np.uint32)
+    assert ctx.invoke(mont, mont=True) == naive(sc)
+    k = rng.randrange(cp.scalar.modulus)
+    assert ctx.invoke([k] * n) == naive([k] * n)
+
+
+@pytest.mark.parametrize("curve", ["bls12_381", "bls12_381_g2"])
+def test_batch_addition_on_card(dev, curve):
+    """batch_addition at 2^10 on the card: a seeded bitmap and refmap,
+    every point, the empty selection; madd and add launched."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.msm import batch_addition
+
+    n = 1 << 10
+    pts, _, naive, rng = _tiled_case(curve, n, 12)
+    bits = [rng.randrange(2) for _ in range(n)]
+    refs = [rng.randrange(2) for _ in range(n)]
+    EK.reset_launches()
+    got = batch_addition(curve, pts, bits, refs)
+    assert got == naive([b * (-1 if r else 1) for b, r in zip(bits, refs)])
+    counts = {**EK.launches, **EK.fp2_launches}
+    assert counts[EK.kernel_name("xyzz_madd", curve)] > 0
+    assert counts[EK.kernel_name("xyzz_add", curve)] > 0
+    assert batch_addition(curve, pts) == naive([1] * n)
+    assert batch_addition(curve, pts, [0] * n).inf

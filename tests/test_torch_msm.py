@@ -147,11 +147,13 @@ def test_msm_wide_curves_vs_oracle(curve):
 
 
 def test_msm_modes_and_no_silent_cpu():
-    """Only the slab and tree accumulators are ported; with no device
-    given, the entry points run on the card and raise where there is
-    none."""
-    with pytest.raises(NotImplementedError, match="xyzz"):
-        MSMContext(CURVE, 8, mode="xyzz", device="cpu")
+    """Every mode of the JAX package is ported (auto, slab, tree, xyzz,
+    affine); an unknown mode raises.  With no device given, the entry
+    points run on the card and raise where there is none."""
+    for mode in ("auto", "slab", "tree", "xyzz", "affine"):
+        MSMContext(CURVE, 8, mode=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="jacobian"):
+        MSMContext(CURVE, 8, mode="jacobian", device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SpparkError):
