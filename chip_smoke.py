@@ -183,7 +183,34 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      on the BLS12-381 G1 2^20 input with a seeded bitmap and refmap
      against the oracle sum of the tiled base, the empty selection, its
      launches and time;
- 28. prints one JSON line of the numbers, one of the kernels, the run's
+ 28. drives the polynomial ops (sppark_tpu_torch.polynomial) at 2^24 over
+     Goldilocks, BabyBear and BLS12-381 Fr (prefix_sum, prefix_product,
+     div_by_x_minus_z in both layouts) and evaluate of a 2^20-coefficient
+     polynomial at 8 points, each op's bigmont_ew launches counted around
+     it: at 2^16 word for word against the plain path on the card; at full
+     size the scans' recurrences at every position, 1,024 sampled
+     positions and the first 4,096 against Python ints, the remainder ==
+     evaluate(p, z), q(t) (t - z) + r == p(t) at a random t, evaluate ==
+     p_lo(x) + x^(n/2) p_hi(x) and, on a 2^12 slice, Horner over ints;
+     times each op;
+ 29. on an NCCL process group of one (parallel.init_distributed: the
+     collectives run, nothing is skipped at a world size of 1), BASELINE
+     config 5's one-card half: ntt_sharded and ntt_matrix_sharded,
+     forward and inverse, Goldilocks 2^24 and BN254 Fr 2^26, launch counts
+     around them, equal word for word to ntt.base_dev of the same input;
+     times them beside the single-device NTT;
+ 30. on the same group the sharded MSM, BN254 G1 2^26 (config 5's MSM;
+     2^11 points tiled, msm_input), launch counts around it, equal to the
+     exact result and to MSMContext(mode="xyzz"); its wall time and peak
+     memory; then destroys the group;
+ 31. scalar_mul and the jacobian ops on BLS12-381 G1 and G2 over 2^12
+     lanes (16 points tiled, one at infinity) against the oracle on every
+     lane, their launches counted; xyzz_madd with `sign` per lane and
+     through a table and its index against the plain madd with sign; the
+     host ffi.native.cpu_msm (built from the checkout) on BN254 2^16
+     against the port's MSM; prints the phases' seconds;
+ 32. prints one JSON line of the numbers, one of the kernels (each
+     entry's launches counting phases 28-31's paths too), the run's
      seconds, the card's name and power limit, and last {"ok": true,
      "device": {...}}.
 Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
@@ -2879,6 +2906,479 @@ def round_phases(dev, card, rate, g1, g2):
     return numbers, total
 
 
+# -- phases 28-31: polynomial, the sharded NTT and MSM, the tail ------------
+
+POLY_FIELDS = ("goldilocks", "baby_bear", "bls12_381_fr")
+POLY_LG = 24            # prefix_sum, prefix_product, div_by_x_minus_z
+POLY_EVAL_LG = 20       # evaluate: 2^20 coefficients ...
+POLY_POINTS = 8         # ... at 8 points
+POLY_PLAIN_LG = 16      # word for word against the plain path
+POLY_SAMPLES = 1024     # sampled prefix positions against Python ints
+POLY_ANCHOR = 4096      # the first prefixes against Python ints
+POLY_HORNER_LG = 12     # evaluate against Horner on a 2^12 slice
+SHARD_NTT = (("goldilocks", 24), ("bn254_fr", 26))  # BASELINE config 5
+SHARD_MSM_CURVE, SHARD_MSM_LG = "bn254", 26         # its MSM, one rank
+TAIL_LG = 12            # scalar_mul, the jacobian ops, the madd's sign
+TAIL_BASE = 16          # distinct points of the tail's batch, tiled
+CPU_MSM_LG = 16         # the host ffi.native.cpu_msm
+
+
+def field_words(field, n, rng, dev):
+    """n random canonical words of `field` in its layout: Goldilocks int64,
+    BabyBear int32 Montgomery, a wide field's (n32, n) Montgomery words
+    (rand_canon's, the planted edge values in lanes 0-3 drawn anew: a zero
+    there would zero every prefix product)."""
+    import torch
+    from sppark_tpu_torch.ff import gl64
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    from sppark_tpu_torch.ntt.core import elem_ops
+    from sppark_tpu_torch.params import get_field
+
+    p = get_field(field).modulus
+    if elem_ops(field).lead:
+        F = get_field_ops(field)
+        w = rand_canon(F, n, rng, dev)
+        w[:, :4] = rand_canon(F, 8, rng, dev)[:, 4:]
+        return w
+    if p == gl64.P:
+        return gl64.from_wire(rng.integers(0, p, size=n, dtype=np.uint64),
+                              dev)
+    return torch.from_numpy(rng.integers(0, p, size=n).astype(np.int32)
+                            ).to(dev)
+
+
+def field_conv(field):
+    """(to_ints(tensor), from_ints(ints, dev), sub) of a field's words."""
+    from sppark_tpu_torch.ff import gl64
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    from sppark_tpu_torch.ff.mont32 import get_mont32_ops
+    from sppark_tpu_torch.params import get_field
+
+    if get_field(field).modulus == gl64.P:
+        return gl64.to_ints, gl64.from_ints, gl64.sub
+    F = (get_mont32_ops(field) if get_field(field).bits <= 32
+         else get_field_ops(field))
+    return (F.to_int_list,
+            lambda v, dev: F.from_int_list(v, device=dev), F.sub)
+
+
+def poly_phase(field, dev, card, rng):
+    """Phase 28 on one field: the main path (each op's bigmont_ew launches
+    counted around it), its checks and its times.  Returns (numbers,
+    the ops' launches summed by kernel)."""
+    import torch
+    from sppark_tpu_torch import polynomial as P
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ntt.core import elem_ops
+    from sppark_tpu_torch.params import get_field
+
+    F = elem_ops(field)
+    lead = F.lead
+    ints, from_ints, sub = field_conv(field)
+    p = get_field(field).modulus
+    n, ne = 1 << POLY_LG, 1 << POLY_EVAL_LG
+    x = field_words(field, n, rng, dev)
+    zt_i = [int(v) for v in rng.integers(1, 1 << 62, size=2)]
+    zt = from_ints(zt_i, dev)
+    z, t = zt[..., :1], zt[..., 1:]
+    xs = field_words(field, POLY_POINTS, rng, dev)
+    c = x[..., :ne]
+    ops = {
+        "prefix_sum": lambda kern=FK.KERNELS: P.prefix_sum(field, x, kern),
+        "prefix_product": lambda kern=FK.KERNELS: P.prefix_product(
+            field, x, kern),
+        "div_by_x_minus_z": lambda kern=FK.KERNELS: P.div_by_x_minus_z(
+            field, x, z, kern=kern),
+        "div_by_x_minus_z rotate": lambda kern=FK.KERNELS:
+            P.div_by_x_minus_z(field, x, z, True, kern),
+        "evaluate": lambda kern=FK.KERNELS: P.evaluate(field, c, xs, kern),
+    }
+    out, launches, total = {}, {}, {}
+    torch.cuda.synchronize()
+    for name, op in ops.items():
+        reset_all()
+        out[name] = op()
+        torch.cuda.synchronize()
+        launches[name] = FK.launches["bigmont_ew"]
+        for k, v in FK.launches.items():
+            total[k] = total.get(k, 0) + v
+    tag = f"{field} 2^{POLY_LG}"
+    if lead:
+        check(all(v > 0 for k, v in launches.items() if k != "prefix_sum"),
+              f"polynomial {tag}: every op that multiplies launched "
+              f"bigmont_ew {launches}")
+    ps, pp = out["prefix_sum"], out["prefix_product"]
+    q, r = out["div_by_x_minus_z"]
+    rot, ev = out["div_by_x_minus_z rotate"], out["evaluate"]
+
+    # 2^16: word for word against the plain path on the card
+    m = 1 << POLY_PLAIN_LG
+    xm, cm = x[..., :m], x[..., :m]
+    for name, got, want in (
+            ("prefix_sum", P.prefix_sum(field, xm),
+             P.prefix_sum(field, xm, FK.PLAIN)),
+            ("prefix_product", P.prefix_product(field, xm),
+             P.prefix_product(field, xm, FK.PLAIN)),
+            ("div rotate", P.div_by_x_minus_z(field, xm, z, True),
+             P.div_by_x_minus_z(field, xm, z, True, FK.PLAIN)),
+            ("evaluate", P.evaluate(field, cm, xs),
+             P.evaluate(field, cm, xs, FK.PLAIN))):
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"polynomial {field} 2^{POLY_PLAIN_LG}"
+                                      f" {name} == the plain path on the card")
+
+    # the whole scans by their recurrences, on the card
+    check(torch.equal(sub(ps[..., 1:], ps[..., :-1]), x[..., 1:])
+          and torch.equal(ps[..., :1], x[..., :1]),
+          f"prefix_sum {tag}: s[i] - s[i - 1] == x[i] at every i")
+    check(torch.equal(F.mul(pp[..., :-1], x[..., 1:]), pp[..., 1:])
+          and torch.equal(pp[..., :1], x[..., :1]),
+          f"prefix_product {tag}: m[i - 1] x[i] == m[i] at every i")
+    # sampled positions and the first prefixes against Python ints
+    pos = np.sort(rng.choice(n - 1, POLY_SAMPLES, replace=False)) + 1
+    idx = torch.from_numpy(np.concatenate([pos - 1, pos])).to(dev)
+    xi = ints(x.index_select(-1, idx[POLY_SAMPLES:]))
+    si, mi = (ints(a.index_select(-1, idx)) for a in (ps, pp))
+    k = POLY_SAMPLES
+    check(all(si[k + j] == (si[j] + xi[j]) % p
+              and mi[k + j] == mi[j] * xi[j] % p for j in range(k)),
+          f"prefix scans {tag}: {k} sampled positions against Python ints")
+    acc_s, acc_m, ok = 0, 1, True
+    head = ints(x[..., :POLY_ANCHOR])
+    hs, hm = ints(ps[..., :POLY_ANCHOR]), ints(pp[..., :POLY_ANCHOR])
+    for j, v in enumerate(head):
+        acc_s, acc_m = (acc_s + v) % p, acc_m * v % p
+        ok = ok and hs[j] == acc_s and hm[j] == acc_m
+    check(ok, f"prefix scans {tag}: the first {POLY_ANCHOR} against "
+              f"Python ints")
+
+    # the division: the layouts, r == p(z), q(t)(t - z) + r == p(t)
+    check(torch.equal(rot, torch.cat([r, q[..., :-1]], dim=-1))
+          and bool((q[..., -1:] == 0).all()),
+          f"div_by_x_minus_z {tag}: rotate == [r, q...], q's top word 0")
+    pz = P.evaluate(field, x, z)
+    check(torch.equal(pz, r), f"div_by_x_minus_z {tag}: remainder == "
+                              f"evaluate(p, z)")
+    pt, qt = ints(P.evaluate(field, x, t))[0], ints(P.evaluate(field, q,
+                                                               t))[0]
+    zi, ti, ri = zt_i[0] % p, zt_i[1] % p, ints(r)[0]
+    check((qt * (ti - zi) + ri) % p == pt,
+          f"div_by_x_minus_z {tag}: q(t) (t - z) + r == p(t) at a random t")
+
+    # evaluate: the halves' identity at 2^20, Horner on a 2^12 slice
+    half = ne // 2
+    lo = ints(P.evaluate(field, c[..., :half], xs))
+    hi = ints(P.evaluate(field, c[..., half:], xs))
+    pts = ints(xs)
+    check(ints(ev) == [(a + pow(v, half, p) * b) % p
+                       for a, b, v in zip(lo, hi, pts)],
+          f"evaluate {field} 2^{POLY_EVAL_LG} at {POLY_POINTS} points == "
+          f"p_lo(x) + x^{half} p_hi(x)")
+    sl = ints(c[..., :1 << POLY_HORNER_LG])
+    want = []
+    for v in pts:
+        acc = 0
+        for coef in reversed(sl):
+            acc = (acc * v + coef) % p
+        want.append(acc)
+    check(ints(P.evaluate(field, c[..., :1 << POLY_HORNER_LG], xs)) == want,
+          f"evaluate {field} 2^{POLY_HORNER_LG} slice == Horner over ints")
+    del pz, ps, pp, q, r, rot, out
+    numbers = {}
+    for name, op in ops.items():
+        ms = median_ms(op, reps=3)
+        numbers[name] = {"ms": ms, "bigmont_ew": launches[name]}
+        size = (f"2^{POLY_EVAL_LG} x {POLY_POINTS} points"
+                if name == "evaluate" else f"2^{POLY_LG}")
+        print(f"time {name} {field} {size}: {ms:.4f} ms (median of 3, CUDA "
+              f"events), bigmont_ew launches {launches[name]}  [{card}]",
+              flush=True)
+    return numbers, total
+
+
+def read_counts():
+    """Every launch count of the port's kernels, the nonzero ones."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ntt import kernels as K
+    return {k: v for k, v in {**K.launches, **K.narrow_launches,
+                              **K.wide_launches, **EK.launches,
+                              **EK.fp2_launches, **FK.launches}.items() if v}
+
+
+def reset_counts():
+    from sppark_tpu_torch.ntt import kernels as K
+    reset_all()
+    K.reset_launches()
+
+
+def sharded_ntt_phase(mesh, dev, card, rng):
+    """Phase 29: config 5's NTTs on a group of one, ntt_sharded and
+    ntt_matrix_sharded, forward and inverse, against the port's ntt.
+    Returns (numbers, launches)."""
+    import torch
+    from sppark_tpu_torch import ntt
+    from sppark_tpu_torch.parallel import ntt_matrix_sharded, ntt_sharded
+
+    numbers, total = {}, {}
+    for field, lg in SHARD_NTT:
+        n = 1 << lg
+        n1, n2 = 1 << (lg // 2), 1 << (lg - lg // 2)
+        x = field_words(field, n, rng, dev)
+        a = x.reshape(x.shape[:-1] + (n1, n2))
+        torch.cuda.synchronize()
+        reset_counts()
+        fwd = ntt_sharded(field, x, lg, mesh)
+        back = ntt_sharded(field, fwd, lg, mesh, inverse=True)
+        mat = ntt_matrix_sharded(field, a, lg, mesh)
+        mat_inv = ntt_matrix_sharded(field, a, lg, mesh, inverse=True)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"main path sharded NTT {field} 2^{lg} (group of one) "
+              f"launches: {launches}", flush=True)
+        check(any(k.endswith("_ntt_rows") for k in launches)
+              and any(k.endswith("_ntt_cols") for k in launches),
+              f"sharded NTT {field} 2^{lg} went through the row and column "
+              f"kernels")
+        want = ntt.base_dev(field, x, lg)
+        check(torch.equal(fwd, want), f"ntt_sharded {field} 2^{lg} == "
+                                      f"ntt.base_dev, word for word")
+        check(torch.equal(back, x), f"ntt_sharded inverse {field} 2^{lg} "
+                                    f"gives back x")
+        t_want = want.reshape(want.shape[:-1] + (n2, n1)).transpose(-1, -2)
+        check(torch.equal(mat, t_want), f"ntt_matrix_sharded {field} 2^{lg}"
+                                        f" == D[k1, k2] = X[k1 + N1 k2]")
+        del want, t_want, back
+        inv = ntt.base_dev(field, x, lg, direction=ntt.Direction.inverse)
+        check(torch.equal(mat_inv, inv.reshape(
+            inv.shape[:-1] + (n2, n1)).transpose(-1, -2)),
+            f"ntt_matrix_sharded inverse {field} 2^{lg} == the single "
+            f"device's inverse, transposed")
+        del inv, fwd, mat, mat_inv
+        times = {
+            "ntt_sharded": median_ms(lambda: ntt_sharded(
+                field, x, lg, mesh), reps=5),
+            "ntt_sharded inverse": median_ms(lambda: ntt_sharded(
+                field, x, lg, mesh, inverse=True), reps=5),
+            "ntt_matrix_sharded": median_ms(lambda: ntt_matrix_sharded(
+                field, a, lg, mesh), reps=5),
+            "ntt_matrix_sharded inverse": median_ms(
+                lambda: ntt_matrix_sharded(field, a, lg, mesh, inverse=True),
+                reps=5),
+            "ntt.base_dev (single device)": median_ms(
+                lambda: ntt.base_dev(field, x, lg), reps=5)}
+        print(f"time sharded NTT {field} 2^{lg} (group of one): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in times.items())
+            + f" (median of 5, CUDA events)  [{card}]", flush=True)
+        numbers[f"{field}_2^{lg}"] = {"ms": times, "launches": launches}
+        del x, a
+        torch.cuda.empty_cache()
+    return numbers, total
+
+
+def sharded_msm_phase(mesh, dev, card):
+    """Phase 30: config 5's MSM on the group of one, against the exact
+    result and MSMContext(mode="xyzz").  Returns (numbers, launches)."""
+    import torch
+    from sppark_tpu_torch.msm import MSMContext
+    from sppark_tpu_torch.parallel import msm_sharded
+
+    curve, lg = SHARD_MSM_CURVE, SHARD_MSM_LG
+    n = 1 << lg
+    t0 = time.perf_counter()
+    base, pts, words, wd = msm_input(curve, lg, dev)
+    print(f"{curve} 2^{lg}: input made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    reset_counts()
+    got = msm_sharded(curve, pts, wd, mesh)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"main path sharded MSM {curve} 2^{lg} (group of one) launches: "
+          f"{launches}; peak device memory {peak:.3f} GiB, {resident:.3f} "
+          f"GiB of it the input  [{card}]", flush=True)
+    check(all(launches.get(k, 0) > 0 for k in (
+        "ec_xyzz_madd", "ec_xyzz_add", "ec_xyzz_dbl", "bigmont_ew")),
+        f"sharded MSM {curve} 2^{lg} went through madd, add, dbl and the "
+        f"Montgomery multiply")
+    t0 = time.perf_counter()
+    want = tiled_oracle(curve, base, words)
+    check(got == want, f"msm_sharded {curve} 2^{lg} == exact oracle over all "
+                       f"2^{lg} terms ({time.perf_counter() - t0:.1f} s)")
+    ms = wall_ms(lambda: msm_sharded(curve, pts, wd, mesh), reps=2)
+    ctx = MSMContext(curve, n, mode="xyzz")
+    ctx.set_points(pts)
+    check(ctx.invoke(wd) == got, f"msm_sharded {curve} 2^{lg} == "
+                                 f"MSMContext(mode='xyzz')")
+    ms_ctx = wall_ms(lambda: ctx.invoke(wd), reps=2)
+    print(f"time MSM {curve} 2^{lg}: msm_sharded (group of one) {ms:.4f} ms, "
+          f"MSMContext(mode='xyzz') {ms_ctx:.4f} ms (median of 2, wall)  "
+          f"[{card}]", flush=True)
+    del ctx, pts, wd
+    torch.cuda.empty_cache()
+    return {"lg": lg, "ms": ms, "context_xyzz_ms": ms_ctx, "peak_gib": peak,
+            "input_gib": resident, "launches": launches}, launches
+
+
+def tail_phase(dev, card):
+    """Phase 31: scalar_mul and the jacobian ops on BLS12-381 G1 and G2,
+    the madd's sign, the host cpu_msm.  Returns (numbers, launches)."""
+    import torch
+    from sppark_tpu_torch.ec import get_curve_ops
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ffi import cpu_msm
+    from sppark_tpu_torch.msm import MSMContext
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.params import get_curve
+
+    numbers, total = {}, {}
+    n = 1 << TAIL_LG
+    for curve in (MSM_CURVE, G2_CURVE):
+        cp = get_curve(curve)
+        o = get_oracle(cp)
+        rng = random.Random(31)
+        base = [o.random_point(rng) for _ in range(TAIL_BASE)]
+        pts = [base[i % TAIL_BASE] for i in range(n)]
+        pts[3] = o.infinity_affine()
+        ops = get_curve_ops(curve)
+        a = ops.affine_from_ints(pts, dev)
+        # G2's plain fp2 additions make its chain host-bound (~45 s for a
+        # 255-bit k): a 64-bit k there
+        k = rng.randrange(cp.scalar.modulus) if cp.degree == 1 else \
+            rng.randrange(1 << 63, 1 << 64)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        km = ops.xyzz_to_affine(ops.scalar_mul(a, k))
+        j = ops.affine_to_jacobian(a)
+        j3 = ops.jacobian_to_affine(ops.jacobian_add(j, ops.jacobian_dbl(j)))
+        x2 = ops.jacobian_to_affine(ops.xyzz_to_jacobian(
+            ops.xyzz_dbl(ops.affine_to_xyzz(a))))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        for kname, v in launches.items():
+            total[kname] = total.get(kname, 0) + v
+        check(launches.get("bigmont_ew", 0) > 0,
+              f"scalar_mul and the jacobian ops {curve} went through "
+              f"bigmont_ew ({launches})")
+        z = (o.zero, o.zero)
+
+        def aff(q):
+            return z if q.inf else (q.x, q.y)
+        want = {i: (aff(o.jacobian_to_affine(o.scalar_mul(b, k))),
+                    aff(o.jacobian_to_affine(o.scalar_mul(b, 3))),
+                    aff(o.jacobian_to_affine(o.scalar_mul(b, 2))))
+                for i, b in enumerate(base)}
+        got = list(zip(ops.affine_to_ints(km), ops.affine_to_ints(j3),
+                       ops.affine_to_ints(x2)))
+        check(all(got[i] == ((z,) * 3 if i == 3 else want[i % TAIL_BASE])
+                  for i in range(n)),
+              f"scalar_mul, jacobian_add(P, jacobian_dbl(P)) and "
+              f"xyzz_to_jacobian {curve} 2^{TAIL_LG} == oracle on every lane")
+        print(f"time scalar_mul ({k.bit_length()}-bit k) + jacobian ops "
+              f"{curve} 2^{TAIL_LG}: {ms:.4f} ms (wall, one run), launches "
+              f"{launches}  [{card}]", flush=True)
+        # the madd's sign: per lane and through a table with its index
+        p = ops.xyzz_dbl(ops.affine_to_xyzz(ops.affine_from_ints(
+            pts[::-1], dev)))
+        g = np.random.default_rng(31)
+        sign = torch.from_numpy(g.integers(0, 2, size=n).astype(bool)).to(dev)
+        idx = torch.from_numpy(g.integers(0, n, size=n).astype(np.int32)
+                               ).to(dev)
+        name = EK.kernel_name("xyzz_madd", curve)
+        reset_counts()
+        got_l = EK.xyzz_madd(curve, p, a, sign=sign)
+        got_t = EK.xyzz_madd(curve, p, a, idx, sign=sign)
+        torch.cuda.synchronize()
+        madd = read_counts()
+        for kname, v in madd.items():
+            total[kname] = total.get(kname, 0) + v
+        check(madd.get(name, 0) == 2, f"{name} with sign: one launch a "
+                                      f"call ({madd})")
+        check(all(torch.equal(u, v) for u, v in zip(
+            got_l + got_t, EK.xyzz_madd_plain(curve, p, a, sign=sign)
+            + EK.xyzz_madd_plain(curve, p, a, idx, sign))),
+            f"{name} with sign (per lane, and through a table and its "
+            f"index) == the plain madd with sign, 2^{TAIL_LG} lanes")
+        numbers[curve] = {"ms": ms, "launches": launches}
+    # the host native MSM on BN254 2^16 against the port's MSM
+    curve = SHARD_MSM_CURVE
+    base, pts, words, wd = msm_input(curve, CPU_MSM_LG, dev)
+    m = 1 << CPU_MSM_LG
+    o = get_oracle(get_curve(curve))
+    hpts = [base[i % len(base)] for i in range(m)]
+    hpts[3] = o.infinity_affine()
+    scal = [sum(int(words[w, i]) << (32 * w) for w in range(words.shape[0]))
+            for i in range(m)]
+    t0 = time.perf_counter()
+    host = cpu_msm(curve, hpts, scal)
+    ms_host = (time.perf_counter() - t0) * 1e3
+    ctx = MSMContext(curve, m)
+    ctx.set_points(pts)
+    check(host == ctx.invoke(wd), f"ffi.native.cpu_msm {curve} 2^{CPU_MSM_LG}"
+                                  f" (host, built from the checkout) == the "
+                                  f"port's MSM on the card")
+    print(f"time cpu_msm {curve} 2^{CPU_MSM_LG} on the host: {ms_host:.4f} "
+          f"ms (wall, build included on a first call)", flush=True)
+    numbers["cpu_msm_ms"] = ms_host
+    return numbers, total
+
+
+def port_phases(dev, card):
+    """Phases 28-31, each main path with the launch counts set to 0 just
+    before it and read just after.  Returns (numbers, launches summed by
+    kernel)."""
+    import torch
+    from sppark_tpu_torch.parallel import destroy, init_distributed, make_mesh
+
+    numbers, total, seconds = {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    rng = np.random.default_rng(28)
+    t0 = time.perf_counter()
+    for field in POLY_FIELDS:
+        nums, counts = poly_phase(field, dev, card, rng)
+        numbers[f"polynomial_{field}"] = nums
+        add(counts)
+        torch.cuda.empty_cache()
+    seconds["polynomial"] = time.perf_counter() - t0
+    # -- 29-30. BASELINE config 5's one-card half on an NCCL group of one --
+    t0 = time.perf_counter()
+    check(init_distributed() == 1, "an NCCL process group of one")
+    try:
+        mesh = make_mesh()
+        nums, counts = sharded_ntt_phase(mesh, dev, card, rng)
+        numbers["sharded_ntt"] = nums
+        add(counts)
+        seconds["sharded NTT"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nums, counts = sharded_msm_phase(mesh, dev, card)
+        numbers["sharded_msm"] = nums
+        add(counts)
+        seconds["sharded MSM"] = time.perf_counter() - t0
+    finally:
+        destroy()
+    t0 = time.perf_counter()
+    nums, counts = tail_phase(dev, card)
+    numbers["tail"] = nums
+    add(counts)
+    seconds["tail"] = time.perf_counter() - t0
+    numbers["port_phase_seconds"] = seconds
+    print(f"phases 28-31 seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; total {sum(seconds.values()):.1f}", flush=True)
+    return numbers, total
+
+
 def main():
     import torch
 
@@ -3185,8 +3685,10 @@ def main():
     # kernels of the slab and the tree
     for e in msm_entries + g2_entries + tree_entries:
         e["launches"] += round_launches.get(e["name"], 0)
+    torch.cuda.empty_cache()
+    port_numbers, port_launches = port_phases(dev, card)
 
-    # -- 28. summary -----------------------------------------------------------
+    # -- 32. summary -----------------------------------------------------------
     src = "sppark_tpu_torch/csrc/ntt_gl64.cu"
     kernels_line = {"kernels": [
         {"name": "gl64_ntt_rows", "route": "cuda", "source": src,
@@ -3205,11 +3707,14 @@ def main():
          "bound_by": cols_by, "library_ms": None},
     ] + msm_entries + wide_entries + g2_entries + tree_entries
         + narrow_entries}
+    # the paths of phases 28-31 run the NTT, point and field kernels too
+    for e in kernels_line["kernels"]:
+        e["launches"] += port_launches.get(e["name"], 0)
     print(json.dumps({"ntt_ms": t_ntt, "lde_ms": t_lde,
                       "lde_parts_ms": parts, "ntt_launches": ntt_launches,
                       "lde_launches": lde_launches, **wide_numbers,
                       **g2_numbers, **tree_numbers, **narrow_numbers,
-                      **round_numbers,
+                      **round_numbers, **port_numbers,
                       "seconds": time.perf_counter() - t_start,
                       "card": card}))
     print(json.dumps(kernels_line))

@@ -5,9 +5,10 @@ A point batch is a tuple of coordinates, each `(n32, *batch)` int32 words
 for G1, `(2 n32, *batch)` for G2 (an ff/ext.py:Fp2Field element, c0's
 words then c1's; the ops below run unchanged on either field):
 
-  * affine = (x, y)            infinity encoded x == y == 0
+  * affine   = (x, y)          infinity encoded x == y == 0
                                (ec/affine_t.hpp:31-36)
-  * xyzz   = (x, y, zz, zzz)   infinity zz == 0 (ec/xyzz_t.hpp:16)
+  * xyzz     = (x, y, zz, zzz) infinity zz == 0 (ec/xyzz_t.hpp:16)
+  * jacobian = (x, y, z)       infinity z == 0 (ec/jacobian_t.hpp)
 
 Every op is branchless across lanes: the legs are evaluated and lanes
 select between them.  These are the plain versions of the point kernels
@@ -52,12 +53,19 @@ class CurveOps:
     def affine_neg(self, a):
         return (a[0], self.F.neg(a[1]))
 
-    def affine_to_xyzz(self, a):
+    def _affine_z(self, a):
+        """One, or zero where a is at infinity."""
         F = self.F
-        z = F.select(self.affine_is_inf(a), F.zeros(a[0].shape[1:],
-                                                    a[0].device),
-                     F.ones(a[0].shape[1:], a[0].device))
+        return F.select(self.affine_is_inf(a), F.zeros(a[0].shape[1:],
+                                                       a[0].device),
+                        F.ones(a[0].shape[1:], a[0].device))
+
+    def affine_to_xyzz(self, a):
+        z = self._affine_z(a)
         return (a[0], a[1], z, z)
+
+    def affine_to_jacobian(self, a):
+        return (a[0], a[1], self._affine_z(a))
 
     # -- xyzz --------------------------------------------------------------------
     def xyzz_is_inf(self, p):
@@ -117,11 +125,15 @@ class CurveOps:
         out = self._sel(self.xyzz_is_inf(p), q, out)
         return self._sel(self.xyzz_is_inf(q), p, out)
 
-    def xyzz_madd(self, p, a):
+    def xyzz_madd(self, p, a, sign=None):
         """Unified mixed add of affine points, the MSM bucket op
-        (madd-2008-s, 8M + 2S fast leg; ec/xyzz_t.hpp:352-430)."""
+        (madd-2008-s, 8M + 2S fast leg; ec/xyzz_t.hpp:352-430).  `sign`
+        (bool lanes) subtracts the point instead, for signed digits."""
         F = self.F
         ax, ay = a
+        if sign is not None:
+            ay = F.select(sign, F.neg(ay), ay)
+            a = (ax, ay)
         X1, Y1, ZZ1, ZZZ1 = p
         P = F.sub(F.mul(ax, ZZ1), X1)
         R = F.sub(F.mul(ay, ZZZ1), Y1)
@@ -154,6 +166,102 @@ class CurveOps:
         inf = self.xyzz_is_inf(p)
         zero = torch.zeros_like(x)
         return (F.select(inf, zero, ax), F.select(inf, zero, ay))
+
+    def xyzz_to_jacobian(self, p):
+        """Inversion-free conversion (ec/xyzz_t.hpp:87-90): Z' = zz zzz =
+        z^5, so X' = x zz^4 and Y' = y zz^6."""
+        F = self.F
+        x, y, zz, zzz = p
+        zz2 = F.sqr(zz)
+        zz4 = F.sqr(zz2)
+        return (F.mul(x, zz4), F.mul(y, F.mul(zz4, zz2)), F.mul(zz, zzz))
+
+    # -- jacobian ------------------------------------------------------------------
+    def jacobian_is_inf(self, p):
+        return self.F.is_zero(p[2])
+
+    def jacobian_infinity(self, batch_shape=(), device=None):
+        z = self.F.zeros(batch_shape, device)
+        return (z, z, z)
+
+    def jacobian_dbl(self, p):
+        """dbl-2009-l (ec/jacobian_t.hpp:347-384), with a4 where the curve
+        has one; y == 0 or z == 0 gives infinity."""
+        F = self.F
+        x, y, z = p
+        A, B = F.sqr(x), F.sqr(y)
+        C = F.sqr(B)
+        D = F.sub(F.sqr(F.add(x, B)), F.add(A, C))
+        D = F.add(D, D)
+        E = F.add(F.add(A, A), A)
+        if self.curve.a4:
+            a = F.const(self.curve.a4, x.shape[1:], x.device)
+            E = F.add(E, F.mul(a, F.sqr(F.sqr(z))))
+        X3 = F.sub(F.sqr(E), F.add(D, D))
+        C8 = F.add(C, C)
+        C8 = F.add(C8, C8)
+        C8 = F.add(C8, C8)
+        Y3 = F.sub(F.mul(E, F.sub(D, X3)), C8)
+        Z3 = F.mul(F.add(y, y), z)
+        bad = F.is_zero(y) | F.is_zero(z)
+        return (X3, Y3, F.select(bad, torch.zeros_like(z), Z3))
+
+    def jacobian_add(self, p, q):
+        """Unified add (add-2007-bl, ec/jacobian_t.hpp:236-294), the
+        special cases per lane (the dadd role, ec/jacobian_t.hpp:92-151)."""
+        F = self.F
+        X1, Y1, Z1 = p
+        X2, Y2, Z2 = q
+        Z1Z1, Z2Z2 = F.sqr(Z1), F.sqr(Z2)
+        U1, U2 = F.mul(X1, Z2Z2), F.mul(X2, Z1Z1)
+        S1 = F.mul(F.mul(Y1, Z2), Z2Z2)
+        S2 = F.mul(F.mul(Y2, Z1), Z1Z1)
+        H = F.sub(U2, U1)
+        rr = F.sub(S2, S1)
+        r = F.add(rr, rr)
+        I = F.sqr(F.add(H, H))                          # noqa: E741
+        J = F.mul(H, I)
+        V = F.mul(U1, I)
+        X3 = F.sub(F.sub(F.sqr(r), J), F.add(V, V))
+        SJ = F.mul(S1, J)
+        Y3 = F.sub(F.mul(r, F.sub(V, X3)), F.add(SJ, SJ))
+        Z3 = F.mul(F.sub(F.sqr(F.add(Z1, Z2)), F.add(Z1Z1, Z2Z2)), H)
+        p_inf, q_inf = self.jacobian_is_inf(p), self.jacobian_is_inf(q)
+        same_x, same_y = F.is_zero(H), F.is_zero(rr)
+        out = self._sel(same_x & same_y & ~p_inf & ~q_inf,
+                        self.jacobian_dbl(p), (X3, Y3, Z3))
+        inf = self.jacobian_infinity(X1.shape[1:], X1.device)
+        out = self._sel(same_x & ~same_y, inf, out)
+        out = self._sel(q_inf, p, out)
+        return self._sel(p_inf, q, out)
+
+    def jacobian_to_affine(self, p):
+        """Batch normalisation along the last axis (one batch inversion of
+        z); infinity lanes map to (0, 0)."""
+        F = self.F
+        x, y, z = p
+        zi = F.batch_inv(z)
+        zi2 = F.sqr(zi)
+        ax, ay = F.mul(x, zi2), F.mul(y, F.mul(zi2, zi))
+        inf = self.jacobian_is_inf(p)
+        zero = torch.zeros_like(x)
+        return (F.select(inf, zero, ax), F.select(inf, zero, ay))
+
+    # -- scalar multiplication -------------------------------------------------------
+    def scalar_mul(self, a, k: int):
+        """k a for every affine lane of a and one host constant k, by
+        double and add over xyzz points (a utility of the tests; the MSM
+        is the production route).  Returns xyzz points."""
+        k %= self.curve.scalar.modulus
+        acc = self.xyzz_infinity(a[0].shape[1:], a[0].device)
+        addj = self.affine_to_xyzz(a)
+        while k:
+            if k & 1:
+                acc = self.xyzz_add(acc, addj)
+            k >>= 1
+            if k:
+                addj = self.xyzz_dbl(addj)
+        return acc
 
     # -- host conversion -------------------------------------------------------------
     def affine_from_ints(self, pts: Sequence[AffinePoint], device=None):

@@ -224,13 +224,14 @@ def _gather(table, idx):
     return tuple(c.index_select(1, idx) for c in table)
 
 
-def xyzz_madd_plain(curve: str, p, a, idx=None):
+def xyzz_madd_plain(curve: str, p, a, idx=None, sign=None):
     """Plain version of ec_xyzz_madd and ec_fp2_xyzz_madd; with `idx`, the
-    table a's rows idx gathered first."""
+    table a's rows idx gathered first; with `sign` (bool lanes), the
+    point subtracted where it is set."""
     if idx is not None:
         _check_idx(kernel_name("xyzz_madd", curve), a, idx, p)
         a = _gather(a, idx)
-    return get_curve_ops(curve, FK.PLAIN).xyzz_madd(p, a)
+    return get_curve_ops(curve, FK.PLAIN).xyzz_madd(p, a, sign)
 
 
 def xyzz_add_plain(curve: str, p, q):
@@ -307,13 +308,43 @@ def affine_pair_finish_plain(curve: str, l, r, inv, flags, idx=None):
 
 # -- kernels -------------------------------------------------------------------------
 
-def xyzz_madd(curve: str, p, a, idx=None):
+def _signed_table(curve: str, p, a, idx, sign):
+    """(p, table, index) that subtract where `sign` is set through the
+    kernel's table index, as the MSM's negated rows do (slab.point_rows):
+    the table a (per-lane points a: a table of one row a lane, p's batch
+    flattened) beside its negation, rows r.., and the index idx + r sign."""
+    F = get_curve_ops(curve).F
+    if idx is None:
+        batch = p[0].shape[1:]
+        p = tuple(c.reshape(c.shape[0], -1) for c in p)
+        a = tuple(c.expand((c.shape[0],) + batch).reshape(c.shape[0], -1)
+                  for c in a)
+        idx = torch.arange(p[0].shape[1], dtype=torch.int32,
+                           device=p[0].device)
+    rows = a[0].shape[1]
+    if 2 * rows >= 1 << 31:
+        raise ValueError("xyzz_madd: a signed table of 2^31 rows or more")
+    table = (torch.cat([a[0], a[0]], 1), torch.cat([a[1], F.neg(a[1])], 1))
+    sign = torch.broadcast_to(sign, idx.shape).to(idx.device)
+    return p, table, idx + rows * sign.to(torch.int32)
+
+
+def xyzz_madd(curve: str, p, a, idx=None, sign=None):
     """Bucket p (x, y, zz, zzz) += affine a (x, y), lane by lane; with
     `idx` (int32, one per lane), lane i adds row idx[i] of the point table
-    a, two (W, rows) coordinates."""
+    a, two (W, rows) coordinates.  `sign` (bool lanes) subtracts the point
+    instead: on the card through the table index, a's rows beside their
+    negation (no kernel argument of its own)."""
     coords = tuple(p) + tuple(a)
     if _plain(curve, coords):
-        return xyzz_madd_plain(curve, p, a, idx)
+        return xyzz_madd_plain(curve, p, a, idx, sign)
+    if sign is not None:
+        if idx is not None:
+            _check_idx(kernel_name("xyzz_madd", curve), a, idx, p)
+        batch = p[0].shape[1:]
+        q, table, sidx = _signed_table(curve, p, a, idx, sign)
+        out = xyzz_madd(curve, q, table, sidx)
+        return tuple(c.reshape((c.shape[0],) + tuple(batch)) for c in out)
     if idx is None:
         return _xyzz(_launch("xyzz_madd", curve, coords))
     _check_idx(kernel_name("xyzz_madd", curve), a, idx, p)

@@ -8,7 +8,8 @@ Three families, each with the domain on the last axis:
     (*batch, n) (ff/mont32.py);
   * the wide (multi-limb Montgomery) fields: n32 int32 words per element,
     limb-major (n32, *batch, n) (ff/bigmont.py).
-`elem_ops(field)` gives each behind one interface: the field ops, `lead`
+`elem_ops(field)` gives each behind one interface: the field ops (`add`
+and `mul` canonical; `addl`, `subl`, `mull` the butterflies'), `lead`
 (the number of leading word axes, 0 or 1, which every reshape of the
 batch axes keeps in front), the wire converters, `words` (what the
 family's tensors hold, for error messages), `rows`/`cols` (the family's
@@ -50,6 +51,7 @@ class Gl64Ops:
     def __init__(self, params: FieldParams):
         self.params = params
 
+    add = staticmethod(gl64.add)
     mul = staticmethod(gl64.mul)
     sqr = staticmethod(gl64.sqr)
     const = staticmethod(gl64.const)
@@ -80,8 +82,8 @@ class Mont32Ops:
     def __init__(self, params: FieldParams):
         self.params = params
         F = get_mont32_ops(params)
-        self.mul, self.sqr, self.const, self.ones = F.mul, F.sqr, F.const, \
-            F.ones
+        self.add, self.mul, self.sqr = F.add, F.mul, F.sqr
+        self.const, self.ones = F.const, F.ones
         self.addl, self.subl, self.mull = F.add, F.sub, F.mul
         self.from_wire, self.to_wire = F.from_wire_np, F.to_wire_np
 
@@ -106,8 +108,8 @@ class WideOps:
     def __init__(self, params: FieldParams, fk: FK.FieldKernels):
         self.params = params
         F = get_field_ops(params, fk)
-        self.mul, self.sqr, self.const, self.ones = F.mul, F.sqr, F.const, \
-            F.ones
+        self.add, self.mul, self.sqr = F.add, F.mul, F.sqr
+        self.const, self.ones = F.const, F.ones
         self.addl, self.subl, self.mull = F.add, F.sub, F.mul
         self.from_wire, self.to_wire = F.from_wire_np, F.to_wire_np
         self.words = f"({F.n32}, *batch, n) int32 Montgomery words"

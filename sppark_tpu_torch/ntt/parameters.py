@@ -20,7 +20,6 @@ bigmont_ew kernel on a card for the wide fields), ~one mul per element.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Tuple
 
 import torch
@@ -119,7 +118,7 @@ class NTTParameters:
             root = self._root(lg_domain, inverse)
             self._tables[key] = (
                 self._rows_by_doubling(pow(root, block, self.params.modulus),
-                                       n2 // block, lg1),
+                                      n2 // block, lg1),
                 self._rows_by_doubling(root, block, lg1))
         return self._tables[key]
 
@@ -132,6 +131,38 @@ class NTTParameters:
             A, B = self.middle_twiddle_factored(lg_domain, True, lg1, block)
             self._tables[key] = (self._scaled(A, lg_domain), B)
         return self._tables[key]
+
+    def twiddle_shard(self, lg_domain: int, lg1: int, inverse: bool,
+                      size: int, rank: int, block: int = 0):
+        """Rank `rank` of `size`'s column shard of the middle twiddles
+        T[k1, i2] = w^(k1*i2), columns [c0, c0 + M), M = N2/size, c0 =
+        rank*M, for the sharded NTT (parallel/ntt.py): the (N1, M) matrix,
+        or with `block` the factored pair (A, B), T[k1, c0 + j] =
+        A[k1, j / block] * B[k1, j mod block].  The inverse's 1/N is
+        folded in (into A).  Row k1 is (w^c0)^k1 times the powers of w^k1.
+        Dropped with the process group (drop_twiddle_shards)."""
+        key = ("shard", inverse, lg_domain, lg1, size, rank, block)
+        if key not in self._tables:
+            p = self.params.modulus
+            w = self._root(lg_domain, inverse)
+            m = (1 << (lg_domain - lg1)) // size
+            col = powers_of(self.E, pow(w, rank * m, p), 1 << lg1,
+                            self.device,
+                            self.domain_size_inverse(lg_domain)
+                            if inverse else 1)[..., :, None]
+            if block:
+                self._tables[key] = (
+                    self.E.mul(self._rows_by_doubling(pow(w, block, p),
+                                                      m // block, lg1), col),
+                    self._rows_by_doubling(w, block, lg1))
+            else:
+                self._tables[key] = self.E.mul(
+                    self._rows_by_doubling(w, m, lg1), col)
+        return self._tables[key]
+
+    def drop_twiddle_shards(self) -> None:
+        for key in [k for k in self._tables if k[0] == "shard"]:
+            del self._tables[key]
 
     def domain_size_inverse(self, lg_domain: int) -> int:
         return self.params.domain_size_inverse(lg_domain)
@@ -156,13 +187,21 @@ class NTTParameters:
         return self._tables[key]
 
 
-@functools.lru_cache(maxsize=None)
-def _parameters(field_name: str, device: torch.device) -> NTTParameters:
-    return NTTParameters(get_field(field_name), device)
+_PARAMETERS: Dict[Tuple[str, torch.device], NTTParameters] = {}
 
 
 def get_parameters(field_name: str, device=None) -> NTTParameters:
     device = torch.device(device if device is not None else "cpu")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return _parameters(field_name, device)
+    key = (field_name, device)
+    if key not in _PARAMETERS:
+        _PARAMETERS[key] = NTTParameters(get_field(field_name), device)
+    return _PARAMETERS[key]
+
+
+def drop_twiddle_shards() -> None:
+    """Free every field's and device's sharded-NTT twiddle shards: they
+    belong to one process group's ranks."""
+    for pm in _PARAMETERS.values():
+        pm.drop_twiddle_shards()

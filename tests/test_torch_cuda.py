@@ -1195,3 +1195,151 @@ def test_batch_addition_on_card(dev, curve):
     assert counts[EK.kernel_name("xyzz_add", curve)] > 0
     assert batch_addition(curve, pts) == naive([1] * n)
     assert batch_addition(curve, pts, [0] * n).inf
+
+
+@pytest.mark.parametrize("field", ["bls12_381_fr", "goldilocks"])
+def test_polynomial_on_card(dev, field):
+    """prefix_sum, prefix_product, div_by_x_minus_z (both layouts) and
+    evaluate at n = 4097 (8 points, two passes) on the card against the
+    plain path on the card and against the CPU; a wide field's products
+    launched bigmont_ew."""
+    from sppark_tpu_torch import polynomial as P
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.ff.bigmont import get_field_ops
+    from sppark_tpu_torch.ntt.core import elem_ops
+
+    lead = elem_ops(field).lead
+    F = get_field_ops(field) if lead else None
+    p = params.get_field(field).modulus
+    g = np.random.default_rng(41)
+    n = 4097
+    vals = [int(v) for v in g.integers(0, min(p, 1 << 63), size=n + 9)]
+    if lead:
+        mk = lambda v, shape: F.from_int_list(v, shape)     # noqa: E731
+    else:
+        mk = lambda v, shape: gl64.from_ints(v).reshape(shape)  # noqa: E731
+    c, z, xs = mk(vals[:n], (n,)), mk(vals[n:n + 1], (1,)), mk(vals[-8:],
+                                                                (8,))
+    FK.reset_launches()
+    outs = [P.prefix_sum(field, c.to(dev)), P.prefix_product(field, c.to(dev)),
+            *P.div_by_x_minus_z(field, c.to(dev), z.to(dev)),
+            P.div_by_x_minus_z(field, c.to(dev), z.to(dev), rotate=True),
+            P.evaluate(field, c.to(dev), xs.to(dev), pass_elems=4 * n)]
+    torch.cuda.synchronize()
+    assert (FK.launches["bigmont_ew"] > 0) == bool(lead)
+    plain = [P.prefix_sum(field, c.to(dev), FK.PLAIN),
+             P.prefix_product(field, c.to(dev), FK.PLAIN),
+             *P.div_by_x_minus_z(field, c.to(dev), z.to(dev), kern=FK.PLAIN),
+             P.div_by_x_minus_z(field, c.to(dev), z.to(dev), True, FK.PLAIN),
+             P.evaluate(field, c.to(dev), xs.to(dev), FK.PLAIN, 4 * n)]
+    cpu = [P.prefix_sum(field, c), P.prefix_product(field, c),
+           *P.div_by_x_minus_z(field, c, z),
+           P.div_by_x_minus_z(field, c, z, rotate=True),
+           P.evaluate(field, c, xs, pass_elems=4 * n)]
+    for k, (a, b, h) in enumerate(zip(outs, plain, cpu)):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), h), k
+
+
+@pytest.mark.parametrize("curve", ["bls12_381", "bls12_381_g2"])
+def test_scalar_mul_jacobian_on_card(dev, curve):
+    """scalar_mul and the jacobian ops on 64 lanes (8 points tiled, one at
+    infinity) against the oracle; their products launched bigmont_ew."""
+    from sppark_tpu_torch.ec.core import get_curve_ops
+    from sppark_tpu_torch.ff import kernels as FK
+    from sppark_tpu_torch.oracle.ec import get_oracle
+
+    pts, _, _, rng = _tiled_case(curve, 64, 13)
+    cp = params.get_curve(curve)
+    o = get_oracle(cp)
+    ops = get_curve_ops(curve)
+    a = ops.affine_from_ints(pts, dev)
+    k = rng.randrange(cp.scalar.modulus)
+    FK.reset_launches()
+    got = ops.affine_to_ints(ops.xyzz_to_affine(ops.scalar_mul(a, k)))
+    j = ops.affine_to_jacobian(a)
+    s = ops.jacobian_add(j, ops.jacobian_dbl(j))
+    got3 = ops.affine_to_ints(ops.jacobian_to_affine(s))
+    x2 = ops.xyzz_dbl(ops.affine_to_xyzz(a))
+    via = ops.affine_to_ints(ops.jacobian_to_affine(ops.xyzz_to_jacobian(x2)))
+    assert FK.launches["bigmont_ew"] > 0
+    z = (o.zero, o.zero)
+    for i, pt in enumerate(pts[:16]):          # lane 3 at infinity
+        km = o.jacobian_to_affine(o.scalar_mul(pt, k))
+        t3 = o.jacobian_to_affine(o.scalar_mul(pt, 3))
+        t2 = o.jacobian_to_affine(o.scalar_mul(pt, 2))
+        for got_l, want in ((got, km), (got3, t3), (via, t2)):
+            assert got_l[i] == (z if want.inf else (want.x, want.y)), i
+    for got_l in (got, got3, via):             # the rest: the 8 tiled
+        assert all(got_l[i] == got_l[8 + i % 8] for i in range(16, 64))
+
+
+@pytest.mark.parametrize("curve", ["bls12_381", "bls12_381_g2"])
+def test_madd_sign_on_card(dev, curve):
+    """xyzz_madd with `sign` on the card, per-lane points and through a
+    table and its index, against the plain version with sign: the sign
+    rides the index into the table beside its negation."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.ec.core import get_curve_ops
+
+    pts, _, _, rng = _tiled_case(curve, 64, 14)
+    ops = get_curve_ops(curve)
+    a = ops.affine_from_ints(pts, dev)
+    p = ops.xyzz_dbl(ops.affine_to_xyzz(ops.affine_from_ints(pts[::-1], dev)))
+    sign = torch.tensor([rng.randrange(2) == 1 for _ in range(64)],
+                        device=dev)
+    idx = torch.tensor([rng.randrange(64) for _ in range(64)],
+                       dtype=torch.int32, device=dev)
+    name = EK.kernel_name("xyzz_madd", curve)
+    EK.reset_launches()
+    got = EK.xyzz_madd(curve, p, a, sign=sign)
+    got_t = EK.xyzz_madd(curve, p, a, idx, sign=sign)
+    torch.cuda.synchronize()
+    assert {**EK.launches, **EK.fp2_launches}[name] == 2
+    for u, v in ((got, EK.xyzz_madd_plain(curve, p, a, sign=sign)),
+                 (got_t, EK.xyzz_madd_plain(curve, p, a, idx, sign))):
+        assert all(torch.equal(x, y) for x, y in zip(u, v))
+
+
+def test_sharded_on_group_of_one(dev):
+    """The sharded NTT (Goldilocks 2^12, BN254 Fr 2^10; flat and matrix,
+    forward and inverse) and MSM (BLS12-381 G1 2^10) on an NCCL group of
+    one, against the single-device NTT, MSMContext(mode="xyzz") and
+    msm_naive."""
+    from sppark_tpu_torch.msm import MSMContext
+    from sppark_tpu_torch.ntt.core import elem_ops
+    from sppark_tpu_torch.parallel import (destroy, init_distributed,
+                                           make_mesh, msm_sharded,
+                                           ntt_matrix_sharded, ntt_sharded)
+
+    assert init_distributed() == 1
+    try:
+        mesh = make_mesh()
+        assert mesh.size == 1 and mesh.device.type == "cuda"
+        for field, lg in (("goldilocks", 12), ("bn254_fr", 10)):
+            E = elem_ops(field)
+            n = 1 << lg
+            if E.lead:
+                from sppark_tpu_torch.ff.bigmont import get_field_ops
+                x = get_field_ops(field).from_int_list(
+                    range(3, 3 + n), device=dev)
+            else:
+                x = gl64.from_ints(range(3, 3 + n), dev)
+            for inverse in (False, True):
+                want = ntt.base_dev(field, x, lg, direction=ntt.Direction(
+                    int(inverse)))
+                got = ntt_sharded(field, x, lg, mesh, inverse=inverse)
+                assert torch.equal(got, want), (field, inverse)
+                n1, n2 = 1 << (lg // 2), 1 << (lg - lg // 2)
+                d = ntt_matrix_sharded(field, x.reshape(x.shape[:-1]
+                                                        + (n1, n2)),
+                                       lg, mesh, inverse=inverse)
+                assert torch.equal(d, want.reshape(
+                    want.shape[:-1] + (n2, n1)).transpose(-1, -2)), field
+        curve, n = "bls12_381", 1 << 10
+        pts, sc, naive, _ = _tiled_case(curve, n, 15)
+        ctx = MSMContext(curve, n, mode="xyzz")
+        ctx.set_points(pts)
+        assert msm_sharded(curve, pts, sc, mesh) == ctx.invoke(sc) \
+            == naive(sc)
+    finally:
+        destroy()
