@@ -209,8 +209,17 @@ Builds the CUDA kernels from sppark_tpu_torch/csrc, then:
      through a table and its index against the plain madd with sign; the
      host ffi.native.cpu_msm (built from the checkout) on BN254 2^16
      against the port's MSM; prints the phases' seconds;
- 32. prints one JSON line of the numbers, one of the kernels (each
-     entry's launches counting phases 28-31's paths too), the run's
+ 32. runs the port's two examples through their `main` on the card,
+     the launch counts set to 0 before each and read after:
+     examples/ntt_example.py on Goldilocks and BabyBear 2^24 (host arrays:
+     NTT, iNTT, the coset pair, LDE x4), its round trips exact, through
+     the row and column kernels; examples/msm_example.py on BN254 and
+     BLS12-381 G1 2^20 (2^11 oracle points tiled, infinity at index 3),
+     equal to the host ffi.native.cpu_msm and on the curve, through the
+     madd, add, dbl, the batch inversion and bigmont_ew; prints each run's
+     wall time; fails past 90 s;
+ 33. prints one JSON line of the numbers, one of the kernels (each
+     entry's launches counting phases 28-32's paths too), the run's
      seconds, the card's name and power limit, and last {"ok": true,
      "device": {...}}.
 Bounds: the larger of the bytes moved over 3.35 TB/s and the 32-bit
@@ -3379,6 +3388,87 @@ def port_phases(dev, card):
     return numbers, total
 
 
+# -- phase 32: the two examples as the port's entry points ---------------------
+
+EX_NTT_FIELDS = ("goldilocks", "baby_bear")
+EX_NTT_LG = 24
+EX_MSM_CURVES = ("bn254", "bls12_381")
+EX_MSM_LG = 20          # the examples' base of 2^11 oracle points, tiled
+EX_MSM_KERNELS = ("ec_xyzz_madd", "ec_xyzz_add", "ec_xyzz_dbl",
+                  "bigmont_inv_up", "bigmont_pow", "bigmont_inv_down",
+                  "bigmont_ew")
+EX_BUDGET_S = 90
+
+
+def examples_phase(card):
+    """Phase 32: sppark_tpu_torch.examples' ntt_example and msm_example
+    through their `main`, on the card, each run with the launch counts set
+    to 0 just before it and read just after.  Returns (numbers, launches
+    summed by kernel)."""
+    import torch
+    from sppark_tpu_torch import ntt
+    from sppark_tpu_torch.examples import msm_example, ntt_example
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.params import get_curve
+
+    numbers, total = {}, {}
+    t_phase = time.perf_counter()
+
+    def run(fn, argv):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out, wall, counts
+
+    for field in EX_NTT_FIELDS:
+        out, wall, counts = run(ntt_example.main, [field, str(EX_NTT_LG)])
+        kind = "gl64" if field == "goldilocks" else "mont32"
+        check(all(counts.get(f"{kind}_ntt_{p}", 0) > 0 for p in
+                  ("rows", "cols")),
+              f"ntt_example {field} 2^{EX_NTT_LG} went through {kind}_ntt_rows"
+              f" and {kind}_ntt_cols ({counts})")
+        data = out["data"]
+        check(np.array_equal(ntt.intt(field, out["ntt"], EX_NTT_LG), data)
+              and np.array_equal(ntt.coset_intt(field, out["coset_ntt"],
+                                                EX_NTT_LG), data)
+              and out["lde"].shape == (data.size << 2,),
+              f"ntt_example {field} 2^{EX_NTT_LG}: the NTT and coset round "
+              f"trips exact, the LDE x4 of {data.size << 2} words")
+        print(f"time ntt_example {field} 2^{EX_NTT_LG}: {wall:.3f} s wall "
+              f"(host arrays, five transforms), launches {counts}  [{card}]",
+              flush=True)
+        numbers[f"ntt_example_{field}"] = {"s": wall, "launches": counts}
+    for curve in EX_MSM_CURVES:
+        out, wall, counts = run(msm_example.main, [curve, str(EX_MSM_LG)])
+        res, host = out["result"], out["host"]
+        check(all(counts.get(k, 0) > 0 for k in EX_MSM_KERNELS),
+              f"msm_example {curve} 2^{EX_MSM_LG} went through "
+              f"{', '.join(EX_MSM_KERNELS)} ({counts})")
+        check(host is not None and res == host and not res.inf
+              and get_oracle(get_curve(curve)).on_curve(res),
+              f"msm_example {curve} 2^{EX_MSM_LG} == ffi.native.cpu_msm "
+              f"and on the curve")
+        print(f"time msm_example {curve} 2^{EX_MSM_LG}: {wall:.3f} s wall "
+              f"(mult_pippenger {out['device_s']:.3f} s from oracle points,"
+              f" cpu_msm {out['host_s']:.3f} s on the host), launches "
+              f"{counts}  [{card}]", flush=True)
+        numbers[f"msm_example_{curve}"] = {
+            "s": wall, "device_s": out["device_s"],
+            "host_s": out["host_s"], "launches": counts}
+        del out, res, host
+    seconds = time.perf_counter() - t_phase
+    check(seconds <= EX_BUDGET_S, f"phase 32 within {EX_BUDGET_S} s "
+                                  f"({seconds:.1f} s)")
+    numbers["example_phase_seconds"] = seconds
+    return numbers, total
+
+
 def main():
     import torch
 
@@ -3687,8 +3777,10 @@ def main():
         e["launches"] += round_launches.get(e["name"], 0)
     torch.cuda.empty_cache()
     port_numbers, port_launches = port_phases(dev, card)
+    torch.cuda.empty_cache()
+    example_numbers, example_launches = examples_phase(card)
 
-    # -- 32. summary -----------------------------------------------------------
+    # -- 33. summary -----------------------------------------------------------
     src = "sppark_tpu_torch/csrc/ntt_gl64.cu"
     kernels_line = {"kernels": [
         {"name": "gl64_ntt_rows", "route": "cuda", "source": src,
@@ -3707,14 +3799,15 @@ def main():
          "bound_by": cols_by, "library_ms": None},
     ] + msm_entries + wide_entries + g2_entries + tree_entries
         + narrow_entries}
-    # the paths of phases 28-31 run the NTT, point and field kernels too
+    # the paths of phases 28-32 run the NTT, point and field kernels too
     for e in kernels_line["kernels"]:
-        e["launches"] += port_launches.get(e["name"], 0)
+        e["launches"] += port_launches.get(e["name"], 0) \
+            + example_launches.get(e["name"], 0)
     print(json.dumps({"ntt_ms": t_ntt, "lde_ms": t_lde,
                       "lde_parts_ms": parts, "ntt_launches": ntt_launches,
                       "lde_launches": lde_launches, **wide_numbers,
                       **g2_numbers, **tree_numbers, **narrow_numbers,
-                      **round_numbers, **port_numbers,
+                      **round_numbers, **port_numbers, **example_numbers,
                       "seconds": time.perf_counter() - t_start,
                       "card": card}))
     print(json.dumps(kernels_line))

@@ -53,6 +53,11 @@ class CurveOps:
     def affine_neg(self, a):
         return (a[0], self.F.neg(a[1]))
 
+    def affine_cneg(self, a, flag):
+        """Negate y on the lanes where `flag` (a (*batch) bool tensor) is
+        set: the signed-digit path (ec/xyzz_t.hpp:362 `subtract`)."""
+        return (a[0], self.F.select(flag, self.F.neg(a[1]), a[1]))
+
     def _affine_z(self, a):
         """One, or zero where a is at infinity."""
         F = self.F
@@ -66,6 +71,10 @@ class CurveOps:
 
     def affine_to_jacobian(self, a):
         return (a[0], a[1], self._affine_z(a))
+
+    def affine_infinity(self, batch_shape=(), device=None):
+        z = self.F.zeros(batch_shape, device)
+        return (z, z)
 
     # -- xyzz --------------------------------------------------------------------
     def xyzz_is_inf(self, p):

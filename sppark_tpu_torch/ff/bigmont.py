@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..params import FieldParams, get_field
-from . import inversion
+from . import inversion, mont32
 from .kernels import (KERNELS, FieldKernels, int_words, mod_add, mod_sub,
                       sub_words, words32, words64)
 
@@ -146,6 +146,21 @@ class BigMontField:
         """Fermat inversion x^(p-2); 0 -> 0."""
         return self.pow_const(x, self.p - 2)
 
+    def nth_root(self, x, k: int):
+        """x^(1/k) = x^(k^-1 mod p-1) for gcd(k, p-1) == 1."""
+        return mont32.nth_root(self.pow_const, self.p, x, k)
+
+    def heptaroot(self, x):
+        return self.nth_root(x, 7)
+
+    def pentaroot(self, x):
+        return self.nth_root(x, 5)
+
+    def sqrt(self, x):
+        """A square root x^((p+1)/4) for p = 3 (mod 4); garbage for a
+        non-residue, as in the reference."""
+        return mont32.sqrt(self.pow_const, self.p, x)
+
     def batch_inv(self, x):
         """Montgomery-trick inversion of every lane, zero lanes giving
         zero.  On the card the field kernels' batch_inv over the whole
@@ -176,6 +191,16 @@ class BigMontField:
         return self.mul(x, self._word_const(1, x.shape[1:], x.device))
 
     # -- host conversion -----------------------------------------------------------
+    def one_wire_int(self) -> int:
+        """The wire int of 1: the Montgomery one where the wire words are
+        Montgomery words, else 1."""
+        return self.params.one_mont if self.params.montgomery_wire else 1
+
+    def rand_ints(self, rng, n: int) -> List[int]:
+        """n uniform canonical ints, one draw of `rng` (a random.Random)
+        each."""
+        return [rng.randrange(self.p) for _ in range(n)]
+
     def from_int_list(self, values: Iterable[int], batch_shape=None,
                       device=None) -> torch.Tensor:
         """Canonical ints -> Montgomery words (n32, n), or (n32,

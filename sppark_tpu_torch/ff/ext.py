@@ -154,6 +154,11 @@ class Fp2Field:
         launches, ff/kernels.py:mont_batch_inv)."""
         return self.base.kern.batch_inv(x, self.base.params, 2, self.nr)
 
+    def inv(self, x):
+        """1 / a through the norm map, the norm inverted by the base field's
+        inv; 0 -> 0."""
+        return self._inv_by_norm(x, self.base.inv)
+
     def batch_inv(self, x):
         """Inversion of every lane through the norm map, zero lanes giving
         zero: on the card `_batch_inv_dev`, on the CPU the base field's
@@ -173,6 +178,15 @@ class Fp2Field:
         return self._inv_by_norm(x, self.base.batch_inv_tree)
 
     # -- host conversion -----------------------------------------------------------
+    def one_wire_int(self) -> tuple:
+        """The wire ints of 1 as a (c0, c1) pair."""
+        return (self.base.one_wire_int(), 0)
+
+    def rand_ints(self, rng, n: int) -> List[tuple]:
+        """n uniform (c0, c1) pairs, c0 drawn from `rng` before c1."""
+        return [(rng.randrange(self.p), rng.randrange(self.p))
+                for _ in range(n)]
+
     def from_int_list(self, values: Iterable, batch_shape=None,
                       device=None) -> torch.Tensor:
         """Canonical (c0, c1) int pairs -> Montgomery words (2 n32, n), or
@@ -325,6 +339,16 @@ class BabyBear4Field:
         return self._inv_by_norm(a, self.base.batch_inv_tree)
 
     # -- host conversion -----------------------------------------------------------
+    def one_wire_int(self) -> tuple:
+        """The wire ints of 1 as its four coefficients."""
+        return (self.base.one_wire_int(), 0, 0, 0)
+
+    def rand_ints(self, rng, n: int) -> List[tuple]:
+        """n uniform elements as four canonical coefficients each, drawn
+        from `rng` in order."""
+        return [tuple(rng.randrange(self.base.p) for _ in range(4))
+                for _ in range(n)]
+
     def from_int_list(self, values: Iterable, batch_shape=None,
                       device=None) -> torch.Tensor:
         """Canonical 4-tuples of ints -> (4, n), or (4, *batch_shape)."""

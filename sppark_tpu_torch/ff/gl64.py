@@ -127,6 +127,18 @@ def ones(shape: Sequence[int], device=None):
     return const(1, shape, device)
 
 
+def zeros(shape: Sequence[int], device=None):
+    return torch.zeros(tuple(shape), dtype=torch.int64, device=device)
+
+
+def is_zero(x):
+    return canon(x) == 0
+
+
+def eq(x, y):
+    return canon(x) == canon(y)
+
+
 def pow_const(x, e: int):
     """x^e for a static exponent, MSB-first square and multiply."""
     if e == 0:
@@ -170,6 +182,12 @@ def batch_inv(x):
                                torch.ones_like(x))
 
 
+def batch_inv_tree(x):
+    """Product-tree inversion along a power-of-two last axis of non-zero
+    lanes (ff/inversion.py)."""
+    return inversion.batch_inv_tree(mul, inv, x)
+
+
 # -- conversions ---------------------------------------------------------------
 
 def from_wire(arr: np.ndarray, device=None) -> torch.Tensor:
@@ -210,9 +228,21 @@ def to_ints(t: torch.Tensor) -> List[int]:
     return [int(v) for v in to_wire(t).reshape(-1)]
 
 
+def one_wire_int() -> int:
+    """The wire int of 1: Goldilocks words are canonical."""
+    return 1
+
+
+def rand_ints(rng, n: int) -> List[int]:
+    """n uniform canonical ints, one draw of `rng` (a random.Random) each."""
+    return [rng.randrange(P) for _ in range(n)]
+
+
 __all__ = [
     "P", "EPS", "to_i64", "add_lazy", "sub_lazy", "mul_lazy", "canon", "add",
-    "sub", "mul", "sqr", "neg", "select", "const", "ones", "pow_const", "inv",
-    "nth_root", "heptaroot", "pentaroot", "sqrt", "batch_inv", "from_wire",
+    "sub", "mul", "sqr", "neg", "select", "const", "ones", "zeros", "is_zero",
+    "eq", "pow_const", "inv", "nth_root", "heptaroot", "pentaroot", "sqrt",
+    "batch_inv", "batch_inv_tree", "from_wire",
     "to_wire", "from_jax_planes", "to_jax_planes", "from_ints", "to_ints",
+    "one_wire_int", "rand_ints",
 ]

@@ -160,6 +160,16 @@ class Mont32Field:
         return inversion.batch_inv_tree(self.mul, self.inv, x)
 
     # -- host conversion -----------------------------------------------------------
+    def one_wire_int(self) -> int:
+        """The wire int of 1: the Montgomery one where the wire words are
+        Montgomery words, else 1."""
+        return self.params.one_mont if self.params.montgomery_wire else 1
+
+    def rand_ints(self, rng, n: int) -> List[int]:
+        """n uniform canonical ints, one draw of `rng` (a random.Random)
+        each."""
+        return [rng.randrange(self.p) for _ in range(n)]
+
     def from_int_list(self, values: Iterable[int], batch_shape=None,
                       device=None) -> torch.Tensor:
         """Canonical ints -> words (n,), or (*batch_shape)."""

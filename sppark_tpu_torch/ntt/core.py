@@ -174,3 +174,9 @@ def ct_stages(E, x: torch.Tensor, lg_n: int, tw: torch.Tensor) -> torch.Tensor:
         x = torch.stack([E.addl(lo, t), E.subl(lo, t)],
                         dim=-2).reshape(lead + (n,))
     return E.canon(x)
+
+
+def ntt_nn(E, x: torch.Tensor, lg_n: int, tw: torch.Tensor) -> torch.Tensor:
+    """Natural-in natural-out NTT along the last axis: the bit reversal,
+    then `ct_stages`."""
+    return ct_stages(E, bit_reverse(x, lg_n), lg_n, tw)

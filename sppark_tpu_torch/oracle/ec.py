@@ -76,11 +76,26 @@ class CurveOracle:
         z = self.zero
         return XyzzPoint(z, z, z, z)
 
+    def on_curve(self, p: AffinePoint) -> bool:
+        """y^2 == x^3 + a4 x + b; infinity is on every curve."""
+        if p.inf:
+            return True
+        F = self.F
+        rhs = F.add(F.mul(F.sqr(p.x), p.x), self.b)
+        if self.curve.a4:
+            rhs = F.add(rhs, F.mul(p.x, self.curve.a4))
+        return F.sqr(p.y) == rhs
+
     # -- conversions -------------------------------------------------------
     def to_jacobian(self, p: AffinePoint) -> JacobianPoint:
         if p.inf:
             return self.infinity_jacobian()
         return JacobianPoint(p.x, p.y, self.one)
+
+    def to_xyzz(self, p: AffinePoint) -> XyzzPoint:
+        if p.inf:
+            return self.infinity_xyzz()
+        return XyzzPoint(p.x, p.y, self.one, self.one)
 
     def jacobian_to_affine(self, p: JacobianPoint) -> AffinePoint:
         F = self.F
@@ -191,16 +206,18 @@ class CurveOracle:
         ZZZ3 = F.mul(F.mul(p.zzz, q.zzz), PPP)
         return XyzzPoint(X3, Y3, ZZ3, ZZZ3)
 
-    def xyzz_madd(self, p: XyzzPoint, a: AffinePoint) -> XyzzPoint:
-        """Mixed add of an affine point: the MSM bucket op
-        (ec/xyzz_t.hpp:352-430)."""
+    def xyzz_madd(self, p: XyzzPoint, a: AffinePoint,
+                  subtract: bool = False) -> XyzzPoint:
+        """Mixed add of an affine point, or with `subtract` of its
+        negation: the MSM bucket op (ec/xyzz_t.hpp:352-430)."""
         F = self.F
         if a.inf:
             return p
+        ay = F.neg(a.y) if subtract else a.y
         if self._is_zero(p.zz):
-            return XyzzPoint(a.x, a.y, self.one, self.one)
+            return XyzzPoint(a.x, ay, self.one, self.one)
         U2 = F.mul(a.x, p.zz)
-        S2 = F.mul(a.y, p.zzz)
+        S2 = F.mul(ay, p.zzz)
         P = F.sub(U2, p.x)
         R = F.sub(S2, p.y)
         if self._is_zero(P):
@@ -232,6 +249,11 @@ class CurveOracle:
         if p.inf:
             return p
         return AffinePoint(p.x, self.F.neg(p.y), False)
+
+    def affine_eq(self, p: AffinePoint, q: AffinePoint) -> bool:
+        if p.inf or q.inf:
+            return p.inf == q.inf
+        return p.x == q.x and p.y == q.y
 
     # -- point sampling ---------------------------------------------------------
     def random_point(self, rng: random.Random) -> AffinePoint:

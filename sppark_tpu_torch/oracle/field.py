@@ -35,6 +35,27 @@ class Fr:
             return 0
         return pow(a, -1, self.p)
 
+    def pow(self, a: int, e: int) -> int:
+        return pow(a, e, self.p)
+
+    def to_mont(self, a: int) -> int:
+        return self.params.to_mont(a)
+
+    def from_mont(self, a: int) -> int:
+        return self.params.from_mont(a)
+
+    def to_wire(self, a: int) -> int:
+        """Canonical int -> wire int (Montgomery where the field's wire
+        words are Montgomery words)."""
+        return self.to_mont(a) if self.params.montgomery_wire else a % self.p
+
+    def from_wire(self, a: int) -> int:
+        return self.from_mont(a) if self.params.montgomery_wire else a % self.p
+
+    def rand(self, rng) -> int:
+        """A uniform element, one draw of `rng` (a random.Random)."""
+        return rng.randrange(self.p)
+
 
 class Fp2:
     """F_p[u]/(u^2 - nonresidue) on (c0, c1) int pairs, c0 + c1 u."""
@@ -75,3 +96,7 @@ class Fp2:
 
     def is_zero(self, a) -> bool:
         return a[0] % self.p == 0 and a[1] % self.p == 0
+
+    def rand(self, rng):
+        """A uniform element, c0 drawn from `rng` before c1."""
+        return (rng.randrange(self.p), rng.randrange(self.p))

@@ -1,7 +1,8 @@
-from .devices import (all_devices, ndevices, select_device, device_props,
-                      resolve)
+from .devices import (accelerator_available, all_devices, ndevices,
+                      select_device, device_props, resolve)
 from .timer import DeviceTimer, time_ms
 from .dev_ptr import DevPtr
 
 __all__ = ["all_devices", "ndevices", "select_device", "device_props",
-           "resolve", "DeviceTimer", "time_ms", "DevPtr"]
+           "accelerator_available", "resolve", "DeviceTimer", "time_ms",
+           "DevPtr"]

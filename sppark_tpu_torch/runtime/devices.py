@@ -15,6 +15,12 @@ def all_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def accelerator_available() -> bool:
+    """True when a CUDA card is usable (sppark's cuda_available,
+    util/cuda_available.cu:10-23)."""
+    return torch.cuda.is_available()
+
+
 def ndevices() -> int:
     return torch.cuda.device_count()
 

@@ -15,3 +15,10 @@ class SpparkError(RuntimeError):
 
     def __repr__(self) -> str:
         return f"SpparkError(code={self.code}, message={self.message!r})"
+
+
+def sppark_ok(cond: bool, code: int, message: str) -> None:
+    """Raise SpparkError(code, message) unless `cond` holds: sppark's
+    CUDA_OK throw-on-error helper (util/exception.cuh:12-21)."""
+    if not cond:
+        raise SpparkError(code, message)

@@ -1343,3 +1343,35 @@ def test_sharded_on_group_of_one(dev):
             == naive(sc)
     finally:
         destroy()
+
+
+def test_examples_on_card(dev):
+    """Both examples' main on the card (no --cpu) at small sizes: the NTT
+    example on goldilocks and baby_bear at 2^12 through the narrow
+    kernels, equal to its run with --cpu; the MSM example on bn254 at
+    2^10 through the point kernels, equal to the native host MSM (the
+    example asserts it) and on the curve, and on test_gl64 at 2^8 (plain
+    point ops on every device) equal to its run with --cpu."""
+    from sppark_tpu_torch.ec import kernels as EK
+    from sppark_tpu_torch.examples import msm_example, ntt_example
+    from sppark_tpu_torch.oracle.ec import get_oracle
+    from sppark_tpu_torch.runtime import accelerator_available
+
+    assert accelerator_available()
+    for field in ("goldilocks", "baby_bear"):
+        K.reset_launches()
+        out = ntt_example.main([field, "12"])
+        counts = {**K.launches, **K.narrow_launches}
+        assert all(v > 0 for k, v in counts.items()
+                   if k.startswith("gl64" if field == "goldilocks"
+                                   else "mont32")), counts
+        cpu = ntt_example.main([field, "12", "--cpu"])
+        for k in ("data", "ntt", "coset_ntt", "lde"):
+            assert np.array_equal(out[k], cpu[k]), (field, k)
+    EK.reset_launches()
+    out = msm_example.main(["bn254", "10"])
+    assert EK.launches["ec_xyzz_madd"] > 0
+    assert out["host"] is not None and out["result"] == out["host"]
+    assert get_oracle(params.get_curve("bn254")).on_curve(out["result"])
+    got = msm_example.main(["test_gl64", "8"])["result"]
+    assert got == msm_example.main(["test_gl64", "8", "--cpu"])["result"]

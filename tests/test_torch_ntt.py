@@ -165,8 +165,8 @@ def _forbidden(name: str) -> bool:
 def test_import_hygiene():
     """Neither the port nor chip_smoke.py imports JAX or sppark_tpu: no
     import statement names them, and importing every module of the port
-    (polynomial, parallel, ffi and util.slices among them) loads none of
-    them."""
+    (polynomial, parallel, ffi, util.slices and examples among them)
+    loads none of them."""
     files = sorted((ROOT / "sppark_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     modules = []
@@ -185,7 +185,7 @@ def test_import_hygiene():
             if rel.parts[0] == "sppark_tpu_torch":
                 parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
                 modules.append(".".join(parts))
-    for sub in ("polynomial", "parallel", "ffi", "util.slices"):
+    for sub in ("polynomial", "parallel", "ffi", "util.slices", "examples"):
         assert any(m == f"sppark_tpu_torch.{sub}" or m.startswith(
             f"sppark_tpu_torch.{sub}.") for m in modules), sub
     code = (
