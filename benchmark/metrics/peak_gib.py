@@ -1,0 +1,6 @@
+"""peak_gib: torch.cuda.max_memory_allocated() from the process's start to
+the window's end, in GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2 ** 30 if run.peak_bytes else None
